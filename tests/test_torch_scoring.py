@@ -1,0 +1,173 @@
+"""The scoring kernels' plain versions (esac_tpu_torch.ransac.fused_scoring)
+against the JAX package's Pallas kernels run in interpret mode.
+
+On the CPU a kernel wrapper takes its plain version, so these tests hold
+the plain versions -- what ``chip_smoke.py`` holds the CUDA kernels against
+on the card -- to ``soft_inlier_scores_pallas(..., interpret=True)`` and
+``soft_inlier_score_select(..., use_pallas=True, interpret=True)``.
+Tolerance for scores: rtol 1e-5, atol 1e-3 -- sums of up to N sigmoids in
+float32, accumulated in another order with another exp implementation.
+Winner indices are compared exactly on fixtures without near ties; winner
+pose rows are bit-equal to the input row.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from esac_tpu.data import CAMERA_F, make_correspondence_frame
+from esac_tpu.geometry.rotations import rodrigues as j_rodrigues
+from esac_tpu.ransac import RansacConfig as JRansacConfig
+from esac_tpu.ransac.kernel import generate_hypotheses as j_generate
+from esac_tpu.ransac.pallas_scoring import (
+    soft_inlier_score_select as j_select,
+    soft_inlier_scores_chunked as j_chunked,
+    soft_inlier_scores_pallas as j_scores,
+)
+from esac_tpu_torch.ransac import fused_scoring as fs
+
+F = np.float32(CAMERA_F / 4.0)
+C = np.array([80.0, 60.0], np.float32)
+FRAME_KW = dict(height=120, width=160, f=CAMERA_F / 4.0, c=(80.0, 60.0))
+TOL = dict(rtol=1e-5, atol=1e-3)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _fixture(seed=0, n_hyps=40):
+    """One 120x160 frame (N = 300 cells) and H = 40 hypotheses: neither is
+    a multiple of the TPU kernel's (8, 512) blocks."""
+    frame = make_correspondence_frame(jax.random.key(seed), noise=0.02,
+                                      outlier_frac=0.3, **FRAME_KW)
+    rv, tv = j_generate(jax.random.key(seed + 1), frame["coords"], frame["pixels"],
+                        F, C, JRansacConfig(n_hyps=n_hyps))
+    return (np.asarray(frame["coords"]), np.asarray(frame["pixels"]),
+            np.asarray(rv), np.asarray(jax.vmap(j_rodrigues)(rv)), np.asarray(tv))
+
+
+def _port_args(Rs, ts, coords, pixels):
+    return _t(Rs), _t(ts), _t(coords), _t(pixels), torch.tensor(F), _t(C)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_score_kernel_plain_matches_pallas_interpret(seed):
+    coords, pixels, _, Rs, ts = _fixture(seed)
+    want = np.asarray(j_scores(Rs, ts, coords, pixels, F, C, 10.0, 0.5, interpret=True))
+    got = fs.soft_inlier_scores_kernel(*_port_args(Rs, ts, coords, pixels), 10.0, 0.5)
+    assert got.shape == (40,)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_select_kernel_plain_matches_pallas_interpret(seed):
+    coords, pixels, _, Rs, ts = _fixture(seed)
+    bi, bs = j_select(Rs, ts, coords, pixels, F, C, 10.0, 0.5,
+                      use_pallas=True, interpret=True)
+    i, s, pose = fs.soft_inlier_score_select(*_port_args(Rs, ts, coords, pixels), 10.0, 0.5)
+    assert int(i) == int(bi)
+    np.testing.assert_allclose(float(s), float(bs), **TOL)
+    np.testing.assert_array_equal(pose[:9].numpy(), Rs[int(bi)].reshape(9))
+    np.testing.assert_array_equal(pose[9:].numpy(), ts[int(bi)])
+
+
+def test_batched_problems_with_per_frame_pixels():
+    """P = 2 frames x 3 experts in one call, pixels (G=2, N, 2) -- one group
+    per frame -- and per-problem focals: each problem equals the JAX kernel
+    run on that problem alone."""
+    per = [_fixture(s, n_hyps=12) for s in range(6)]
+    Rs = np.stack([p[3] for p in per]).reshape(2, 3, 12, 3, 3)
+    ts = np.stack([p[4] for p in per]).reshape(2, 3, 12, 3)
+    coords = np.stack([p[0] for p in per]).reshape(2, 3, 300, 3)
+    pixels = np.stack([per[0][1], per[0][1] + 0.5])  # (2, N, 2)
+    f = np.array([[F, F * 1.1, F * 0.9]] * 2, np.float32)
+    got = fs.soft_inlier_scores_kernel(_t(Rs), _t(ts), _t(coords), _t(pixels), _t(f),
+                                       _t(C), 10.0, 0.5)
+    sel_i, sel_s, _ = fs.soft_inlier_score_select(_t(Rs), _t(ts), _t(coords), _t(pixels),
+                                                  _t(f), _t(C), 10.0, 0.5)
+    assert got.shape == (2, 3, 12) and sel_i.shape == (2, 3)
+    for b in range(2):
+        for m in range(3):
+            want = np.asarray(j_scores(Rs[b, m], ts[b, m], coords[b, m], pixels[b],
+                                       f[b, m], C, 10.0, 0.5, interpret=True))
+            np.testing.assert_allclose(got[b, m].numpy(), want, **TOL)
+            assert int(sel_i[b, m]) == int(np.argmax(want))
+            np.testing.assert_allclose(float(sel_s[b, m]), want.max(), **TOL)
+
+
+def test_all_cells_behind_camera_score_exactly_zero():
+    """Every cell behind the camera: the +1000 px penalty underflows every
+    sigmoid to exactly 0 on both sides, and the select returns index 0 (the
+    first of H = 5 tied hypotheses), never anything past H."""
+    coords = np.tile(np.array([[0.0, 0.0, -5.0]], np.float32), (64, 1))
+    pixels = np.tile(C[None], (64, 1))
+    Rs = np.tile(np.eye(3, dtype=np.float32)[None], (5, 1, 1))
+    ts = np.zeros((5, 3), np.float32)
+    want = np.asarray(j_scores(Rs, ts, coords, pixels, F, C, 10.0, 0.5, interpret=True))
+    got = fs.soft_inlier_scores_kernel(*_port_args(Rs, ts, coords, pixels), 10.0, 0.5)
+    assert (want == 0).all() and (got.numpy() == 0).all()
+    i, s, _ = fs.soft_inlier_score_select(*_port_args(Rs, ts, coords, pixels), 10.0, 0.5)
+    ki, ks = j_select(Rs, ts, coords, pixels, F, C, 10.0, 0.5, use_pallas=True,
+                      interpret=True)
+    assert int(i) == int(ki) == 0 and float(s) == float(ks) == 0.0
+
+
+@pytest.mark.parametrize("dup", ["next", 15, 39])
+def test_select_crafted_ties_first_max_wins(dup):
+    """The winner duplicated at a later index -- in the same 8-row block,
+    across a block boundary, and in the last row -- never displaces the
+    first occurrence (jnp.argmax's contract, tests/test_fused_select.py)."""
+    coords, pixels, _, Rs, ts = _fixture(6)
+    w = int(np.argmax(np.asarray(j_scores(Rs, ts, coords, pixels, F, C, 10.0, 0.5,
+                                          interpret=True))))
+    d = w + 1 if dup == "next" else dup
+    if d == w:
+        d = w + 1
+    Rs, ts = Rs.copy(), ts.copy()
+    Rs[d], ts[d] = Rs[w], ts[w]
+    want, _ = j_select(Rs, ts, coords, pixels, F, C, 10.0, 0.5, use_pallas=True,
+                       interpret=True)
+    i, _, pose = fs.soft_inlier_score_select(*_port_args(Rs, ts, coords, pixels), 10.0, 0.5)
+    assert int(i) == int(want) == min(w, d)
+    np.testing.assert_array_equal(pose[:9].numpy(), Rs[min(w, d)].reshape(9))
+
+
+@pytest.mark.parametrize("impl", ["errmap", "fused"])
+def test_chunked_scores_match_jax(impl):
+    """The "errmap" / "fused" inference paths' chunked scoring
+    (soft_inlier_scores_chunked; the fused formula chunked in _scores_plain)
+    against the JAX package's soft_inlier_scores_chunked, at a chunk that
+    does not divide H."""
+    coords, pixels, rv, Rs, tv = _fixture(3)
+    want = np.asarray(j_chunked(rv, tv, coords, pixels, F, C, 10.0, 0.5,
+                                impl=impl, chunk=16))
+    if impl == "errmap":
+        got = fs.soft_inlier_scores_chunked(_t(rv), _t(tv), _t(coords), _t(pixels),
+                                            torch.tensor(F), _t(C), 10.0, 0.5, chunk=16)
+    else:
+        got = fs._scores_plain(*_port_args(Rs, tv, coords, pixels), 10.0, 0.5, chunk=16)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_kernel_operands_reject_what_the_kernel_does_not_take():
+    """The wrapper's checks (pure Python, so they run here): dtype,
+    requires_grad, mismatched shapes, pixel groups that do not divide P."""
+    rng = np.random.default_rng(0)
+    args = [_t(rng.normal(size=s)) for s in ((8, 3, 3), (8, 3), (50, 3), (50, 2))]
+    args += [torch.tensor(F), _t(C)]
+    op = fs._kernel_operands(*args)
+    assert op["poses"].shape == (1, 8, 12) and op["G"] == 1 and op["P"] == 1
+    bad = [
+        (0, args[0].double(), TypeError),
+        (0, args[0].clone().requires_grad_(True), RuntimeError),
+        (1, args[1][:4], ValueError),
+        (2, args[2][:10], ValueError),
+        (3, args[3][None].repeat(2, 1, 1), ValueError),
+    ]
+    for pos, val, exc in bad:
+        call = list(args)
+        call[pos] = val
+        with pytest.raises(exc):
+            fs._kernel_operands(*call)
