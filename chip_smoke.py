@@ -10,13 +10,16 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  ptxas report);
 3. kernels    -- each CUDA kernel against its plain PyTorch version on the
                  card, at the serving shapes (P = 4 frames x 7 experts,
-                 H = 256, N = 4800) and at ragged shapes (H = 40, N = 300):
-                 scores allclose (rtol 1e-5, atol 1e-3: the same float32
-                 formula summed in another order), winner index equal where
-                 the top two plain scores are further apart than that
-                 tolerance, crafted ties resolving to the first index, the
-                 winner's pose row bit-equal to its input row; CUDA-event
-                 times of kernel and plain version;
+                 H = 256, N = 4800), at the 16-frame serving bucket
+                 (P = 112) and at ragged shapes (H = 40, N = 300): scores
+                 allclose (rtol 1e-5, atol 1e-3: the same float32 formula
+                 summed in another order), winner index equal where the top
+                 two plain scores are further apart than that tolerance,
+                 crafted ties resolving to the first index, the winner's
+                 pose row bit-equal to its input row, two select calls
+                 bit-identical; CUDA-event times of each wrapper, of each
+                 kernel's launch alone on operands packed once, and of the
+                 plain version;
 4. recovery   -- synthetic frames built here from --seed (GT pose, cell
                  coordinates back-projected at random depths, 2 cm noise,
                  30% outliers) through dsac_infer and esac_infer_frames
@@ -72,6 +75,7 @@ SFU_PER_PAIR = 5
 
 KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "serving": (4, 7, 256, 480, 640),
+    "frames16": (16, 7, 256, 480, 640),
     "ragged": (3, 1, 40, 120, 160),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
@@ -162,7 +166,8 @@ def phase_build():
         report = path.with_suffix(".so.log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line or "error" in line.lower():
+                if any(k in line.lower() for k in ("entry function", "registers", "spill",
+                                                    "error")):
                     log(f"[build]   {line.strip()}")
     return secs
 
@@ -237,6 +242,28 @@ def _bound(P, H, N, G):
                 bytes=nbytes)
 
 
+def _launch_ms(dev, fs, args):
+    """CUDA-event times of each kernel's launch helper alone, on operands
+    packed and buffers allocated once: the kernel without its wrapper's
+    packing, allocation and checks; and the select kernel's cell split.
+    Nothing to launch on the CPU."""
+    if dev.type != "cuda":
+        return {"score_kernel": float("nan"), "select_kernel": float("nan")}, {}
+    import torch
+
+    *tensors, tau, beta = args
+    op = fs._kernel_operands(*tensors)
+    out = torch.empty((op["P"], op["H"]), dtype=torch.float32, device=dev)
+    buf = fs._select_buffers(op, dev)
+    stream = fs._stream(dev)
+    resident, tile = fs._select_shape(dev.index)
+    split = dict(S=buf["S"], cells=buf["cells"], tile=tile, resident_blocks=resident,
+                 blocks=op["P"] * -(-op["H"] // tile) * buf["S"])
+    return {"score_kernel": time_ms(lambda: fs._launch_scores(op, out, tau, beta, stream), dev),
+            "select_kernel": time_ms(lambda: fs._launch_select(op, buf, tau, beta, stream),
+                                     dev)}, split
+
+
 def phase_kernels(dev, seed):
     import torch
 
@@ -269,9 +296,15 @@ def phase_kernels(dev, seed):
             raise AssertionError(f"{label}: winner pose row is not bit-equal to its input row")
         err_select = float((k_s - p_s).abs().max())
 
+        k_i2, k_s2, _ = fs.soft_inlier_score_select(*args)
+        if not (torch.equal(k_i, k_i2) and torch.equal(k_s, k_s2)):
+            raise AssertionError(f"{label}: two select calls on the same inputs differ")
+
         # Crafted ties: each problem's winner duplicated at a later index
-        # (same block, next block, last row) must not displace the first.
-        for dup in (1, 9, H - 1):
+        # (the next row, across an 8-row group, on both sides of the
+        # 128-hypothesis tile boundary, the last row) must not displace the
+        # first.
+        for dup in sorted({d for d in (1, 9, 127, 128, H - 1) if d < H}):
             Rt, tt = Rs.clone(), ts.clone()
             w = torch.zeros_like(k_i)  # put the winner at 0, duplicate it later
             bi, mi = torch.meshgrid(torch.arange(B), torch.arange(M), indexing="ij")
@@ -289,16 +322,25 @@ def phase_kernels(dev, seed):
             "select": time_ms(lambda: fs.soft_inlier_score_select(*args), dev),
             "select_plain": time_ms(lambda: fs._select_plain(*args), dev, reps=5),
         }
+        kernel_ms, split = _launch_ms(dev, fs, args)
+        ms.update(kernel_ms)
         bound = _bound(P, H, N, 1)
         results[label] = dict(P=P, H=H, N=N, err_scores=err_scores, err_select=err_select,
-                              clear_winners=int(clear.sum()), ms=ms, **bound)
+                              clear_winners=int(clear.sum()), ms=ms, select_split=split,
+                              **bound)
         log(f"[kernels] {label}: P={P} H={H} N={N}  scores max|err| {err_scores:.3g}  "
             f"select max|err| {err_select:.3g}  winners checked {int(clear.sum())}/{P}  "
             f"ties ok  pose rows bit-equal  (tolerance rtol 1e-5, atol 1e-3)")
-        log(f"[kernels] {label}: score {ms['score']:.4f} ms (plain {ms['score_plain']:.4f})  "
-            f"select {ms['select']:.4f} ms (plain {ms['select_plain']:.4f})  "
+        log(f"[kernels] {label}: score kernel {ms['score_kernel']:.4f} ms, wrapper "
+            f"{ms['score']:.4f} (plain {ms['score_plain']:.4f})  select kernel "
+            f"{ms['select_kernel']:.4f} ms, wrapper {ms['select']:.4f} "
+            f"(plain {ms['select_plain']:.4f})  "
             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}  "
             f"(SFU bound {bound['sfu_bound_ms']:.4f} ms at the data-sheet SFU rate)")
+        if split:
+            log(f"[kernels] {label}: select partial pass {split['blocks']} blocks = P x "
+                f"{-(-H // split['tile'])} tiles x S={split['S']} chunks of {split['cells']} "
+                f"cells; {split['resident_blocks']} resident on the card")
     return results
 
 
@@ -544,6 +586,7 @@ def main(argv=None) -> int:
          "replaces": "esac_tpu/ransac/pallas_scoring.py:94",
          "launches": serving["launches"]["pallas"]["soft_inlier_scores"],
          "max_abs_err": k["err_scores"], "ms": k["ms"]["score"],
+         "kernel_ms": k["ms"]["score_kernel"], "wrapper_ms": k["ms"]["score"],
          "plain_ms": k["ms"]["score_plain"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
         {"name": "soft_inlier_select", "route": "cuda",
@@ -551,6 +594,7 @@ def main(argv=None) -> int:
          "replaces": "esac_tpu/ransac/pallas_scoring.py:301",
          "launches": serving["launches"]["fused_select"]["soft_inlier_select"],
          "max_abs_err": k["err_select"], "ms": k["ms"]["select"],
+         "kernel_ms": k["ms"]["select_kernel"], "wrapper_ms": k["ms"]["select"],
          "plain_ms": k["ms"]["select_plain"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
     ]}

@@ -30,6 +30,7 @@ training slice.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -134,16 +135,21 @@ def _pack_poses(Rs, ts):
 def _lib() -> ctypes.CDLL:
     from esac_tpu_torch import _build
 
-    lib = _build.load("soft_inlier")
+    return _typed(_build.load("soft_inlier"))
+
+
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/soft_inlier.cu) with its C signatures set."""
     if not getattr(lib, "_esac_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.esac_soft_inlier_scores.argtypes = [P, P, P, P, P, I, I, I, I, F, F, P, P]
         lib.esac_soft_inlier_scores.restype = I
-        lib.esac_soft_inlier_select.argtypes = [P, P, P, P, P, I, I, I, I, F, F,
-                                                P, P, P, P, P, P]
+        lib.esac_soft_inlier_select.argtypes = [P, P, P, P, P, I, I, I, I, I, I, F, F,
+                                                P, P, P, P, P]
         lib.esac_soft_inlier_select.restype = I
-        lib.esac_hyps_per_block.argtypes = []
-        lib.esac_hyps_per_block.restype = I
+        for fn in (lib.esac_select_blocks_per_sm, lib.esac_select_tile):
+            fn.argtypes = []
+            fn.restype = I
         lib._esac_typed = True
     return lib
 
@@ -201,6 +207,19 @@ def _ptr(x: torch.Tensor) -> int:
     return x.data_ptr()
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_scores(op, out, tau, beta, stream) -> int:
+    """Launch the scoring kernel on operands packed by
+    :func:`_kernel_operands` into ``out`` (P, H); returns the cudaError."""
+    return _lib().esac_soft_inlier_scores(
+        _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
+        _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], float(tau), float(beta),
+        _ptr(out), stream)
+
+
 def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
     """Scores of every hypothesis: (..., H) float32.  CUDA tensors launch
     the hand-written kernel (one launch for all problems); CPU tensors take
@@ -210,17 +229,75 @@ def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
     op = _kernel_operands(Rs, ts, coords, pixels, f, c)
     out = torch.empty((op["P"], op["H"]), dtype=torch.float32, device=Rs.device)
     with torch.cuda.device(Rs.device):
-        stream = torch.cuda.current_stream(Rs.device).cuda_stream
-        err = _lib().esac_soft_inlier_scores(
-            _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
-            _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], float(tau), float(beta),
-            _ptr(out), stream)
+        err = _launch_scores(op, out, tau, beta, _stream(Rs.device))
     soft_inlier_scores_kernel.launches += 1
     _check(err, "esac_soft_inlier_scores")
     return out.reshape(op["lead"] + (op["H"],))
 
 
 soft_inlier_scores_kernel.launches = 0
+
+
+MIN_CHUNK_CELLS = 32
+SELECT_WAVES = 4
+
+
+def select_cell_chunks(P: int, H: int, N: int, resident_blocks: int,
+                       tile: int = 128, waves: int = SELECT_WAVES) -> tuple[int, int]:
+    """How the select kernel's partial pass splits the N cells: ``(S,
+    cells)``, chunk s covering cells [s * cells, min(N, (s + 1) * cells)).
+    The grid is P x ceil(H / tile) x S blocks; S is the most chunks that
+    keep it within ``waves`` waves of the ``resident_blocks`` the card
+    holds at once -- several short waves, so SMs that finish early take
+    more blocks -- with at least ``MIN_CHUNK_CELLS`` cells a chunk (the
+    last may hold fewer) and S = 1 where P alone fills the card.  Every
+    cell falls in exactly one chunk."""
+    blocks = P * -(-H // tile)
+    want = max(1, waves * resident_blocks // blocks)
+    cells = max(MIN_CHUNK_CELLS, -(-N // want))
+    return -(-N // cells), cells
+
+
+@functools.lru_cache(maxsize=None)
+def _select_shape(device_index: int) -> tuple[int, int]:
+    """(resident blocks of the partial pass on the whole card, tile)."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        per_sm = lib.esac_select_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError("esac_select_blocks_per_sm: occupancy query failed")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return per_sm * sms, lib.esac_select_tile()
+
+
+def _select_buffers(op, dev, split=None):
+    """Outputs and the (P, S, H) partial-sum scratch of the select kernel
+    for operands ``op``, with the cell split ``(S, cells)``: by default
+    :func:`select_cell_chunks` at the card's resident blocks."""
+    P, H = op["P"], op["H"]
+    if split is None:
+        resident, tile = _select_shape(dev.index)
+        split = select_cell_chunks(P, H, op["N"], resident, tile)
+    S, cells = split
+    return dict(
+        S=S, cells=cells,
+        part=torch.empty((P, S, H), dtype=torch.float32, device=dev),
+        best_idx=torch.empty((P,), dtype=torch.int32, device=dev),
+        best_score=torch.empty((P,), dtype=torch.float32, device=dev),
+        best_pose=torch.empty((P, 12), dtype=torch.float32, device=dev),
+    )
+
+
+def _launch_select(op, buf, tau, beta, stream, lib=None) -> int:
+    """Launch the score+select kernel on operands packed by
+    :func:`_kernel_operands` into buffers from :func:`_select_buffers`
+    (``lib``: another build of the source, for tools/select_bound.py);
+    returns the cudaError."""
+    return (lib or _lib()).esac_soft_inlier_select(
+        _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
+        _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], buf["S"], buf["cells"],
+        float(tau), float(beta), _ptr(buf["part"]), _ptr(buf["best_idx"]),
+        _ptr(buf["best_score"]), _ptr(buf["best_pose"]), stream)
 
 
 def soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta):
@@ -232,27 +309,15 @@ def soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta):
     if not Rs.is_cuda:
         return _select_plain(Rs, ts, coords, pixels, f, c, tau, beta)
     op = _kernel_operands(Rs, ts, coords, pixels, f, c)
-    lib = _lib()
-    P, H = op["P"], op["H"]
-    n_blocks = -(-H // lib.esac_hyps_per_block())
     dev = Rs.device
-    part_score = torch.empty((P, n_blocks), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((P, n_blocks), dtype=torch.int32, device=dev)
-    best_idx = torch.empty((P,), dtype=torch.int32, device=dev)
-    best_score = torch.empty((P,), dtype=torch.float32, device=dev)
-    best_pose = torch.empty((P, 12), dtype=torch.float32, device=dev)
+    buf = _select_buffers(op, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.esac_soft_inlier_select(
-            _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
-            _ptr(op["c"]), P, H, op["N"], op["G"], float(tau), float(beta),
-            _ptr(part_score), _ptr(part_idx), _ptr(best_idx), _ptr(best_score),
-            _ptr(best_pose), stream)
+        err = _launch_select(op, buf, tau, beta, _stream(dev))
     soft_inlier_score_select.launches += 1
     _check(err, "esac_soft_inlier_select")
     lead = op["lead"]
-    return (best_idx.long().reshape(lead), best_score.reshape(lead),
-            best_pose.reshape(lead + (12,)))
+    return (buf["best_idx"].long().reshape(lead), buf["best_score"].reshape(lead),
+            buf["best_pose"].reshape(lead + (12,)))
 
 
 soft_inlier_score_select.launches = 0

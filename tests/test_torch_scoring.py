@@ -171,3 +171,34 @@ def test_kernel_operands_reject_what_the_kernel_does_not_take():
         call[pos] = val
         with pytest.raises(exc):
             fs._kernel_operands(*call)
+
+
+@pytest.mark.parametrize("resident", [8 * 132, 2 * 132])
+@pytest.mark.parametrize("P,H,N", [
+    (28, 256, 4800),   # 4 frames x 7 experts, 640x480: the serving shape
+    (112, 256, 4800),  # the 16-frame bucket
+    (14, 256, 4800),   # the 1-frame bucket (2 lanes)
+    (3, 40, 300),      # ragged H and N
+    (1, 256, 4800),
+    (1, 40, 300),
+    (1, 1, 1),
+    (40000, 256, 4800),  # P alone fills the card: no split
+])
+def test_select_cell_chunks_tile_the_cells_once(P, H, N, resident):
+    """The select kernel's cell split (pure Python, run by the wrapper on
+    the card): the chunks tile [0, N) exactly once, each holds at least 32
+    cells but the last, the grid stays within CUDA's limits, and it fills
+    the card for at most SELECT_WAVES waves wherever the cells allow."""
+    S, cells = fs.select_cell_chunks(P, H, N, resident)
+    chunks = [range(s * cells, min(N, (s + 1) * cells)) for s in range(S)]
+    assert [n for ch in chunks for n in ch] == list(range(N))
+    assert all(len(ch) >= fs.MIN_CHUNK_CELLS for ch in chunks[:-1]) and len(chunks[-1]) >= 1
+    tiles = -(-H // 128)
+    grid_x, grid_y = tiles * S, P
+    assert 1 <= grid_x < 2 ** 31 and 1 <= grid_y < 65536
+    blocks = P * tiles * S
+    full = fs.SELECT_WAVES * resident
+    if S > 1:
+        assert blocks <= full
+    if N >= fs.MIN_CHUNK_CELLS * (full // (P * tiles)):
+        assert blocks >= min(full, P * tiles) // 2
