@@ -10,16 +10,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  ptxas report);
 3. kernels    -- each CUDA kernel against its plain PyTorch version on the
                  card, at the serving shapes (P = 4 frames x 7 experts,
-                 H = 256, N = 4800), at the 16-frame serving bucket
-                 (P = 112) and at ragged shapes (H = 40, N = 300): scores
+                 H = 256, N = 4800), at the 16-frame and 1-frame serving
+                 buckets (P = 112, P = 7) and at ragged shapes (H = 40,
+                 N = 300): scores
                  allclose (rtol 1e-5, atol 1e-3: the same float32 formula
                  summed in another order), winner index equal where the top
                  two plain scores are further apart than that tolerance,
-                 crafted ties resolving to the first index, the winner's
-                 pose row bit-equal to its input row, two select calls
-                 bit-identical; CUDA-event times of each wrapper, of each
-                 kernel's launch alone on operands packed once, and of the
-                 plain version;
+                 crafted ties resolving to the first index through both
+                 kernels, the winner's pose row bit-equal to its input row,
+                 two calls of each kernel bit-identical, and the scoring
+                 kernel's scores at the select kernel's winner bit-equal to
+                 its best score, with its argmax equal to that winner (the
+                 two share one partial pass); CUDA-event times of each
+                 wrapper, of each kernel's launch alone on operands packed
+                 once, and of the plain version;
 4. recovery   -- synthetic frames built here from --seed (GT pose, cell
                  coordinates back-projected at random depths, 2 cm noise,
                  30% outliers) through dsac_infer and esac_infer_frames
@@ -30,7 +34,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  answers requests of 1, 3, 5 and 16 frames, planned and padded
                  into the (1, 4, 16, 64) buckets, under "fused_select" and
                  "pallas" on the same seeds, and under the plain "errmap"
-                 path; winners agree across the three.
+                 path; "pallas" and "fused_select" give bit-equal winning
+                 scores and experts, "errmap" agrees within the tolerance.
 
 Around every call of an entry point in phases 4 and 5 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -63,12 +68,13 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-3)
 FP32_PEAK = 67e12
 HBM_BPS = 3.35e12
 SFU_PEAK = 16 * 132 * 1.98e9
-# FP32 operations per (hypothesis, cell) pair of the scoring formula, counted
-# from csrc/soft_inlier.cu: R X + t (9 mul + 9 add), max, 2 mul by f,
-# 2 divisions, 4 add/sub of c and the pixel, du^2 + dv^2 + eps (4), sqrt,
-# compare + select of the penalty (2), beta * (tau - err) (2), negate, exp,
-# 1 + e, reciprocal, the running sum.  Of these, 2 divisions, sqrt, exp and
-# the reciprocal (5) go through the special function units.
+# FP32 operations per (hypothesis, cell) pair of the scoring function itself
+# (the plain formula, as the TPU kernel computes it), not of one kernel's
+# instruction mix: R X + t (9 mul + 9 add), max, 2 mul by f, 2 divisions,
+# 4 add/sub of c and the pixel, du^2 + dv^2 + eps (4), sqrt, compare +
+# select of the penalty (2), beta * (tau - err) (2), negate, exp, 1 + e,
+# reciprocal, the running sum.  Of these, 2 divisions, sqrt, exp and the
+# reciprocal (5) go through the special function units.
 OPS_PER_PAIR = 41
 SFU_PER_PAIR = 5
 
@@ -76,6 +82,7 @@ SFU_PER_PAIR = 5
 KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "serving": (4, 7, 256, 480, 640),
     "frames16": (16, 7, 256, 480, 640),
+    "frames1": (1, 7, 256, 480, 640),
     "ragged": (3, 1, 40, 120, 160),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
@@ -231,9 +238,12 @@ def counted(dev, impl, what, fn):
     return out, got
 
 
-def _bound(P, H, N, G):
+def _bound(P, H, N, G, out_bytes):
+    """The least time for the scoring function on P problems: each input
+    read once (poses, coords, G pixel groups, f, c), ``out_bytes`` written
+    once, OPS_PER_PAIR operations per (hypothesis, cell) pair."""
     pairs = P * H * N
-    nbytes = P * H * 48 + P * N * 12 + G * N * 8 + P * 4 + 8
+    nbytes = P * H * 48 + P * N * 12 + G * N * 8 + P * 4 + 8 + out_bytes
     ops_ms = OPS_PER_PAIR * pairs / FP32_PEAK * 1e3
     bytes_ms = nbytes / HBM_BPS * 1e3
     return dict(bound_ms=max(ops_ms, bytes_ms),
@@ -244,24 +254,24 @@ def _bound(P, H, N, G):
 
 def _launch_ms(dev, fs, args):
     """CUDA-event times of each kernel's launch helper alone, on operands
-    packed and buffers allocated once: the kernel without its wrapper's
-    packing, allocation and checks; and the select kernel's cell split.
-    Nothing to launch on the CPU."""
+    packed and buffers (scratch included) allocated once: the kernel without
+    its wrapper's packing, allocation and checks; and each kernel's cell
+    split.  Nothing to launch on the CPU."""
     if dev.type != "cuda":
         return {"score_kernel": float("nan"), "select_kernel": float("nan")}, {}
-    import torch
-
     *tensors, tau, beta = args
     op = fs._kernel_operands(*tensors)
-    out = torch.empty((op["P"], op["H"]), dtype=torch.float32, device=dev)
-    buf = fs._select_buffers(op, dev)
+    score_buf, select_buf = fs._score_buffers(op, dev), fs._select_buffers(op, dev)
     stream = fs._stream(dev)
-    resident, tile = fs._select_shape(dev.index)
-    split = dict(S=buf["S"], cells=buf["cells"], tile=tile, resident_blocks=resident,
-                 blocks=op["P"] * -(-op["H"] // tile) * buf["S"])
-    return {"score_kernel": time_ms(lambda: fs._launch_scores(op, out, tau, beta, stream), dev),
-            "select_kernel": time_ms(lambda: fs._launch_select(op, buf, tau, beta, stream),
-                                     dev)}, split
+    resident, tile = fs._partial_shape(dev.index)
+    tiles = -(-op["H"] // tile)
+    split = dict(tile=tile, tiles=tiles, resident_blocks=resident, **{
+        kernel: dict(S=buf["S"], cells=buf["cells"], blocks=op["P"] * tiles * buf["S"])
+        for kernel, buf in (("score", score_buf), ("select", select_buf))})
+    return {"score_kernel": time_ms(
+                lambda: fs._launch_scores(op, score_buf, tau, beta, stream), dev),
+            "select_kernel": time_ms(
+                lambda: fs._launch_select(op, select_buf, tau, beta, stream), dev)}, split
 
 
 def phase_kernels(dev, seed):
@@ -281,6 +291,8 @@ def phase_kernels(dev, seed):
         err_scores = float((k_scores - p_scores).abs().max())
         if not torch.allclose(k_scores, p_scores, **SCORE_TOL):
             raise AssertionError(f"{label}: scoring kernel vs plain max |err| {err_scores}")
+        if not torch.equal(k_scores, fs.soft_inlier_scores_kernel(*args)):
+            raise AssertionError(f"{label}: two scoring calls on the same inputs differ")
 
         k_i, k_s, k_pose = fs.soft_inlier_score_select(*args)
         p_i, p_s, _ = fs._select_plain(*args)
@@ -299,6 +311,13 @@ def phase_kernels(dev, seed):
         k_i2, k_s2, _ = fs.soft_inlier_score_select(*args)
         if not (torch.equal(k_i, k_i2) and torch.equal(k_s, k_s2)):
             raise AssertionError(f"{label}: two select calls on the same inputs differ")
+        # One partial pass, partials summed in one order: the scoring
+        # kernel's scores at the select winner are the select kernel's best
+        # scores bit for bit, and their first max is that winner.
+        if not torch.equal(k_scores.gather(-1, k_i[..., None])[..., 0], k_s):
+            raise AssertionError(f"{label}: scores at the select winner != its best score")
+        if not torch.equal(torch.argmax(k_scores, dim=-1), k_i):
+            raise AssertionError(f"{label}: argmax of the scoring kernel != select winner")
 
         # Crafted ties: each problem's winner duplicated at a later index
         # (the next row, across an 8-row group, on both sides of the
@@ -315,6 +334,10 @@ def phase_kernels(dev, seed):
             ti, _, _ = fs.soft_inlier_score_select(Rt, tt, coords, pixels, f, c, 10.0, 0.5)
             if not bool((ti == 0).all()):
                 raise AssertionError(f"{label}: tie at +{dup} did not resolve to the first index")
+            tie_scores = fs.soft_inlier_scores_kernel(Rt, tt, coords, pixels, f, c, 10.0, 0.5)
+            if not bool((torch.argmax(tie_scores, dim=-1) == 0).all()):
+                raise AssertionError(f"{label}: tie at +{dup}: argmax of the scoring kernel "
+                                     "is not the first index")
 
         ms = {
             "score": time_ms(lambda: fs.soft_inlier_scores_kernel(*args), dev),
@@ -324,23 +347,26 @@ def phase_kernels(dev, seed):
         }
         kernel_ms, split = _launch_ms(dev, fs, args)
         ms.update(kernel_ms)
-        bound = _bound(P, H, N, 1)
+        bound = {"score": _bound(P, H, N, 1, P * H * 4),
+                 "select": _bound(P, H, N, 1, P * (4 + 4 + 48))}
         results[label] = dict(P=P, H=H, N=N, err_scores=err_scores, err_select=err_select,
-                              clear_winners=int(clear.sum()), ms=ms, select_split=split,
-                              **bound)
+                              clear_winners=int(clear.sum()), ms=ms, cell_split=split,
+                              bound=bound)
         log(f"[kernels] {label}: P={P} H={H} N={N}  scores max|err| {err_scores:.3g}  "
             f"select max|err| {err_select:.3g}  winners checked {int(clear.sum())}/{P}  "
-            f"ties ok  pose rows bit-equal  (tolerance rtol 1e-5, atol 1e-3)")
+            f"ties ok through both  pose rows bit-equal  scores at the select winner "
+            f"bit-equal  (tolerance rtol 1e-5, atol 1e-3)")
         log(f"[kernels] {label}: score kernel {ms['score_kernel']:.4f} ms, wrapper "
             f"{ms['score']:.4f} (plain {ms['score_plain']:.4f})  select kernel "
             f"{ms['select_kernel']:.4f} ms, wrapper {ms['select']:.4f} "
-            f"(plain {ms['select_plain']:.4f})  "
-            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}  "
-            f"(SFU bound {bound['sfu_bound_ms']:.4f} ms at the data-sheet SFU rate)")
+            f"(plain {ms['select_plain']:.4f})  bound {bound['score']['bound_ms']:.4g} / "
+            f"{bound['select']['bound_ms']:.4g} ms by {bound['score']['bound_by']}  "
+            f"(SFU bound {bound['score']['sfu_bound_ms']:.4g} ms at the data-sheet SFU rate)")
         if split:
-            log(f"[kernels] {label}: select partial pass {split['blocks']} blocks = P x "
-                f"{-(-H // split['tile'])} tiles x S={split['S']} chunks of {split['cells']} "
-                f"cells; {split['resident_blocks']} resident on the card")
+            log(f"[kernels] {label}: partial pass P x {split['tiles']} tiles x S chunks; "
+                + "; ".join(f"{k} kernel S={split[k]['S']} chunks of {split[k]['cells']} "
+                            f"cells, {split[k]['blocks']} blocks" for k in ("score", "select"))
+                + f"; {split['resident_blocks']} resident on the card")
     return results
 
 
@@ -447,19 +473,28 @@ def phase_serving(dev, seed):
                 for key in ("rvec", "tvec", "inlier_frac"):
                     if not bool(torch.isfinite(out[key]).all()):
                         raise AssertionError(f"non-finite {key}")
-            pal_best = pal["scores"].amax(dim=(1, 2))
-            ref_best = ref["scores"].amax(dim=(1, 2))
-            if not torch.allclose(sel["score"], pal_best, **SCORE_TOL):
+            # The two kernels share one partial pass and one summation order,
+            # so "pallas" and "fused_select" pick bit-equal winners.
+            if not torch.equal(sel["score"], pal["scores"].amax(dim=(1, 2))):
                 raise AssertionError("fused_select and pallas winning scores differ")
-            if not torch.allclose(sel["score"], ref_best, **SCORE_TOL):
+            if not torch.equal(sel["expert"], pal["expert"]):
+                raise AssertionError("fused_select and pallas experts differ")
+            if not (torch.allclose(sel["rvec"], pal["rvec"])
+                    and torch.allclose(sel["tvec"], pal["tvec"])):
+                raise AssertionError("fused_select and pallas refined poses differ")
+            pose_bit_equal = bool(torch.equal(sel["rvec"], pal["rvec"])
+                                  and torch.equal(sel["tvec"], pal["tvec"]))
+            if not torch.allclose(sel["score"], ref["scores"].amax(dim=(1, 2)), **SCORE_TOL):
                 raise AssertionError("fused_select and errmap winning scores differ")
             dispatches.append(dict(frames=n_valid, lanes=lanes, ms=times,
                                    score=sel["score"][:n_valid].tolist(),
-                                   expert=sel["expert"][:n_valid].tolist()))
+                                   expert=sel["expert"][:n_valid].tolist(),
+                                   pallas_pose_bit_equal=pose_bit_equal))
             log(f"[serving] request of {len(images)}: dispatch {n_valid} frames in bucket "
                 f"{bucket} ({lanes} lanes): " + ", ".join(
                     f"{k} {v:.1f} ms" for k, v in times.items())
-                + f"; winners {sel['expert'][:n_valid].tolist()}")
+                + f"; winners {sel['expert'][:n_valid].tolist()}; pallas pose "
+                + ("bit-equal" if pose_bit_equal else "allclose, not bit-equal"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     log(f"[serving] launches by scoring_impl over {len(dispatches)} dispatches {launches}; "
         f"peak memory {peak / 2**30:.2f} GiB")
@@ -587,16 +622,16 @@ def main(argv=None) -> int:
          "launches": serving["launches"]["pallas"]["soft_inlier_scores"],
          "max_abs_err": k["err_scores"], "ms": k["ms"]["score"],
          "kernel_ms": k["ms"]["score_kernel"], "wrapper_ms": k["ms"]["score"],
-         "plain_ms": k["ms"]["score_plain"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None},
+         "plain_ms": k["ms"]["score_plain"], "bound_ms": k["bound"]["score"]["bound_ms"],
+         "bound_by": k["bound"]["score"]["bound_by"], "library_ms": None},
         {"name": "soft_inlier_select", "route": "cuda",
          "source": "esac_tpu_torch/csrc/soft_inlier.cu",
          "replaces": "esac_tpu/ransac/pallas_scoring.py:301",
          "launches": serving["launches"]["fused_select"]["soft_inlier_select"],
          "max_abs_err": k["err_select"], "ms": k["ms"]["select"],
          "kernel_ms": k["ms"]["select_kernel"], "wrapper_ms": k["ms"]["select"],
-         "plain_ms": k["ms"]["select_plain"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None},
+         "plain_ms": k["ms"]["select_plain"], "bound_ms": k["bound"]["select"]["bound_ms"],
+         "bound_by": k["bound"]["select"]["bound_by"], "library_ms": None},
     ]}
     if args.out:
         out = pathlib.Path(args.out)

@@ -14,44 +14,45 @@
 // What bounds it on this card: operations, not bytes.  The inputs are 48 B
 // per hypothesis and 20 B per cell (2 MB at 28 problems x 256 hypotheses x
 // 4800 cells) against ~40 FP32 operations per (hypothesis, cell) pair, of
-// which the divisions, sqrt, exp and reciprocal are multi-instruction IEEE
-// sequences around the special function units.  So what matters is issuing
+// which the sqrt, exp and reciprocals are multi-instruction IEEE sequences
+// around the special function units.  So what matters is issuing
 // instructions on every SM sub-partition, with enough warps in flight to
 // hide the dependent chain of each pair.
 //
-// esac_soft_inlier_select (redesigned for Hopper):
-// - Partial pass: one thread per hypothesis.  A block owns one problem, a
-//   tile of kSelTile hypotheses and one chunk of the cells; the wrapper
-//   picks the number of chunks S so that the grid of P x tiles x S blocks
-//   fills the card for about four waves of resident blocks, so SMs that
-//   finish early take more work (occupancy and the grid, not a fixed
-//   8-hypothesis group, set the parallelism).  Each thread keeps its
+// Both entries run the same partial pass, then a final pass of their own:
+// - Partial pass (partial_kernel): one thread per hypothesis.  A block owns
+//   one problem, a tile of kTile hypotheses and one chunk of the cells; the
+//   wrapper picks the number of chunks S so that the grid of
+//   P x tiles x S blocks fills the card for about four waves of resident
+//   blocks, so SMs that finish early take more work.  Each thread keeps its
 //   12 pose floats, f, c and one accumulator in registers -- within the
-//   48 registers that __launch_bounds__(kSelTile, 10) asks for, so 10
-//   blocks (40 warps) stay resident per SM.  The block stages its cells through
+//   48 registers that __launch_bounds__(kTile, 10) asks for, so 10 blocks
+//   (40 warps) stay resident per SM.  The block stages its cells through
 //   shared memory with coalesced loads; every thread of a warp then reads
 //   the same cell (a broadcast, no bank conflicts).  Each thread writes its
 //   partial sum to scratch (P, S, H).  One reciprocal of z per pair
 //   (__frcp_rn, IEEE round-to-nearest) replaces the two divisions by z;
 //   sqrtf, expf and 1 / (1 + e) stay IEEE (no --use_fast_math).
-// - Final pass: one block per problem.  Each thread sums the S partials of
-//   its hypotheses in the order s = 0..S-1, keeps its first max, and a
-//   fixed-shape tree over (score, index) pairs keeps the greater score and,
-//   on equal scores, the smaller index -- jnp.argmax's first-max contract
-//   without relying on block order.  It then copies the winner's 12-float
-//   pose row bit-exactly.  No atomics: results are identical run to run.
-//
-// esac_soft_inlier_scores keeps the port's first design: one block per
-// (problem, 8 hypotheses) holding the poses in shared memory, 256 threads
-// striding over the cells with 8 partial sums each (128 registers, so 2
-// blocks per SM), a fixed-order warp/block reduction, IEEE divisions.
+// - Score final pass (sum_kernel): one thread per hypothesis, a grid of
+//   P x ceil(H / kSumThreads) blocks; loads coalesce along h.
+// - Select final pass (select_final_kernel): one block per problem.  Each
+//   thread keeps the first max of its hypotheses' scores, and a fixed-shape
+//   tree over (score, index) pairs keeps the greater score and, on equal
+//   scores, the smaller index -- jnp.argmax's first-max contract without
+//   relying on block order.  It then copies the winner's 12-float pose row
+//   bit-exactly.
+// Both final passes sum a hypothesis' partials with the one helper
+// hypothesis_score, in the order s = 0..S-1 from 0.0f.  So for one set of
+// operands and one split, the score entry's scores at the select entry's
+// winner are bit-equal to its best score.  No atomics: results are
+// identical run to run.
 //
 // One launch of either entry covers all P = B * M (frame, expert) problems
 // of a dispatch: poses (P, H, 12) [R row-major | t], coords (P, N, 3),
 // pixels (G, N, 2) with problem p reading pixel group p / (P / G), focal
 // f (P,), principal point c (2,).  Ragged H and N are masked in the kernel;
 // nothing is padded.  Every exported function returns cudaGetLastError()
-// after its launches.
+// after each of its launches.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -59,90 +60,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHyps = 8;  // hypotheses per block
 constexpr float kMinDepth = 0.1f;
-
-struct Tile {
-  float pose[kHyps * 12];
-  float red[kWarps * kHyps];
-  float score[kHyps];
-};
-
-// Scores of hypotheses [h0, h0 + n_valid) of one problem (n_valid <= kHyps)
-// into t.score[0 .. kHyps); rows past n_valid read zero poses and are
-// ignored by the callers.
-__device__ void block_scores(const float* __restrict__ poses,
-                             const float* __restrict__ coords,
-                             const float* __restrict__ pixels,
-                             float f, float cx, float cy, int N, int n_valid,
-                             float tau, float beta, Tile& t) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kHyps * 12; i += kThreads)
-    t.pose[i] = (i / 12 < n_valid) ? poses[i] : 0.0f;
-  __syncthreads();
-
-  float acc[kHyps];
-#pragma unroll
-  for (int k = 0; k < kHyps; ++k) acc[k] = 0.0f;
-
-  for (int n = tid; n < N; n += kThreads) {
-    const float X0 = coords[3 * n], X1 = coords[3 * n + 1], X2 = coords[3 * n + 2];
-    const float px = pixels[2 * n], py = pixels[2 * n + 1];
-#pragma unroll
-    for (int k = 0; k < kHyps; ++k) {
-      const float* q = t.pose + 12 * k;
-      const float Yx = q[0] * X0 + q[1] * X1 + q[2] * X2 + q[9];
-      const float Yy = q[3] * X0 + q[4] * X1 + q[5] * X2 + q[10];
-      const float Yz = q[6] * X0 + q[7] * X1 + q[8] * X2 + q[11];
-      const float z = fmaxf(Yz, kMinDepth);
-      const float du = f * Yx / z + cx - px;
-      const float dv = f * Yy / z + cy - py;
-      float err = sqrtf(du * du + dv * dv + 1e-12f);
-      if (Yz < kMinDepth) err += 1000.0f;
-      acc[k] += 1.0f / (1.0f + expf(-(beta * (tau - err))));
-    }
-  }
-
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int k = 0; k < kHyps; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) t.red[warp * kHyps + k] = v;
-  }
-  __syncthreads();
-  if (tid < kHyps) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += t.red[w * kHyps + tid];
-    t.score[tid] = s;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-score_kernel(const float* __restrict__ poses, const float* __restrict__ coords,
-             const float* __restrict__ pixels, const float* __restrict__ f,
-             const float* __restrict__ c, int P, int H, int N, int G,
-             float tau, float beta, float* __restrict__ out) {
-  __shared__ Tile t;
-  const int p = blockIdx.y, h0 = blockIdx.x * kHyps;
-  const int n_valid = min(kHyps, H - h0);
-  const int g = p / (P / G);
-  block_scores(poses + ((size_t)p * H + h0) * 12, coords + (size_t)p * N * 3,
-               pixels + (size_t)g * N * 2, f[p], c[0], c[1], N, n_valid,
-               tau, beta, t);
-  if (threadIdx.x < n_valid) out[(size_t)p * H + h0 + threadIdx.x] = t.score[threadIdx.x];
-}
-
-constexpr int kSelTile = 128;      // hypotheses per partial-pass block, one per thread
-#ifndef SELECT_BLOCKS_PER_SM  // -D override: esac_tpu_torch/tools/select_bound.py sweeps it
-#define SELECT_BLOCKS_PER_SM 10
+constexpr int kTile = 128;  // hypotheses per partial-pass block, one per thread
+#ifndef PARTIAL_BLOCKS_PER_SM  // -D override: esac_tpu_torch/tools/kernel_bound.py sweeps it
+#define PARTIAL_BLOCKS_PER_SM 10
 #endif
-constexpr int kSelBlocksPerSM = SELECT_BLOCKS_PER_SM;  // 10 asks ptxas for <= 48 registers
-constexpr int kStage = 256;         // cells staged in shared memory at a time
+constexpr int kBlocksPerSM = PARTIAL_BLOCKS_PER_SM;  // 10 asks ptxas for <= 48 registers
+constexpr int kStage = 256;  // cells staged in shared memory at a time
+constexpr int kSumThreads = 128;
 constexpr int kFinalThreads = 256;
 
 // A staged cell: X and the pixel, 32 B so that both loads share one
@@ -169,18 +94,18 @@ __device__ __forceinline__ float pair_score(const float (&q)[12], float X0, floa
 
 // blockIdx.x = chunk * n_tiles + tile, blockIdx.y = problem.  Cells
 // [chunk * cells, min(N, (chunk + 1) * cells)) of hypotheses
-// [tile * kSelTile, ...) into part[p][chunk][h].
-__global__ void __launch_bounds__(kSelTile, kSelBlocksPerSM)
-select_partial_kernel(const float* __restrict__ poses, const float* __restrict__ coords,
-                      const float* __restrict__ pixels, const float* __restrict__ f,
-                      const float* __restrict__ c, int P, int H, int N, int G, int cells,
-                      float tau, float beta, float* __restrict__ part) {
+// [tile * kTile, ...) into part[p][chunk][h].
+__global__ void __launch_bounds__(kTile, kBlocksPerSM)
+partial_kernel(const float* __restrict__ poses, const float* __restrict__ coords,
+               const float* __restrict__ pixels, const float* __restrict__ f,
+               const float* __restrict__ c, int P, int H, int N, int G, int cells,
+               float tau, float beta, float* __restrict__ part) {
   __shared__ Cell s_cell[kStage];
-  const int n_tiles = (H + kSelTile - 1) / kSelTile;
+  const int n_tiles = (H + kTile - 1) / kTile;
   const int tile = blockIdx.x % n_tiles, chunk = blockIdx.x / n_tiles;
   const int n_chunks = gridDim.x / n_tiles;
   const int p = blockIdx.y, g = p / (P / G);
-  const int h = tile * kSelTile + threadIdx.x;
+  const int h = tile * kTile + threadIdx.x;
   const bool active = h < H;
 
   float q[12];
@@ -199,7 +124,7 @@ select_partial_kernel(const float* __restrict__ poses, const float* __restrict__
   for (int base = n0; base < n1; base += kStage) {
     const int cnt = min(kStage, n1 - base);
     __syncthreads();  // the previous stage is consumed
-    for (int i = threadIdx.x; i < cnt; i += kSelTile) {
+    for (int i = threadIdx.x; i < cnt; i += kTile) {
       const int n = base + i;
       s_cell[i].a = make_float4(X[3 * n], X[3 * n + 1], X[3 * n + 2], pix[2 * n]);
       s_cell[i].py = pix[2 * n + 1];
@@ -214,6 +139,24 @@ select_partial_kernel(const float* __restrict__ poses, const float* __restrict__
     }
   }
   if (active) part[((size_t)p * n_chunks + chunk) * H + h] = acc;
+}
+
+// The score of hypothesis h: its partials pp[s * H + h] summed in the order
+// s = 0..S-1 from 0.0f.  The one expression both final passes use.
+__device__ __forceinline__ float hypothesis_score(const float* __restrict__ pp, int H,
+                                                  int n_chunks, int h) {
+  float score = 0.0f;
+#pragma unroll 16  // loads in flight; the sum still runs s = 0, 1, ...
+  for (int s = 0; s < n_chunks; ++s) score += pp[(size_t)s * H + h];
+  return score;
+}
+
+// blockIdx.x = hypothesis block, blockIdx.y = problem.
+__global__ void __launch_bounds__(kSumThreads)
+sum_kernel(const float* __restrict__ part, int H, int n_chunks, float* __restrict__ out) {
+  const int p = blockIdx.y, h = blockIdx.x * kSumThreads + threadIdx.x;
+  if (h < H) out[(size_t)p * H + h] = hypothesis_score(part + (size_t)p * n_chunks * H, H,
+                                                       n_chunks, h);
 }
 
 // (s, i) <- (os, oi) if os is greater, or equal with a smaller index.
@@ -246,9 +189,7 @@ select_final_kernel(const float* __restrict__ poses, const float* __restrict__ p
   float best = -INFINITY;
   int bi = INT_MAX;
   for (int h = tid; h < H; h += kFinalThreads) {
-    float score = 0.0f;
-#pragma unroll 16  // loads in flight; the sum still runs s = 0, 1, ...
-    for (int s = 0; s < n_chunks; ++s) score += pp[(size_t)s * H + h];
+    const float score = hypothesis_score(pp, H, n_chunks, h);
     if (score > best) { best = score; bi = h; }
   }
   warp_first_max(best, bi);
@@ -270,27 +211,41 @@ select_final_kernel(const float* __restrict__ poses, const float* __restrict__ p
     best_pose[(size_t)p * 12 + tid] = poses[((size_t)p * H + s_best) * 12 + tid];
 }
 
+cudaError_t launch_partial(const float* poses, const float* coords, const float* pixels,
+                           const float* f, const float* c, int P, int H, int N, int G,
+                           int n_chunks, int cells, float tau, float beta, float* part,
+                           cudaStream_t stream) {
+  const int n_tiles = (H + kTile - 1) / kTile;
+  partial_kernel<<<dim3(n_tiles * n_chunks, P), kTile, 0, stream>>>(
+      poses, coords, pixels, f, c, P, H, N, G, cells, tau, beta, part);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Blocks of the select kernel's partial pass resident on one SM.
-int esac_select_blocks_per_sm() {
+// Blocks of the partial pass resident on one SM.
+int esac_partial_blocks_per_sm() {
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, select_partial_kernel, kSelTile, 0) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, partial_kernel, kTile, 0) !=
       cudaSuccess)
     return 0;
   return n;
 }
 
-int esac_select_tile() { return kSelTile; }
+int esac_partial_tile() { return kTile; }
 
 int esac_soft_inlier_scores(const float* poses, const float* coords, const float* pixels,
                             const float* f, const float* c, int P, int H, int N, int G,
-                            float tau, float beta, float* out, void* stream) {
-  const dim3 grid((H + kHyps - 1) / kHyps, P);
-  score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      poses, coords, pixels, f, c, P, H, N, G, tau, beta, out);
+                            int n_chunks, int cells, float tau, float beta, float* part,
+                            float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_partial(poses, coords, pixels, f, c, P, H, N, G, n_chunks,
+                                         cells, tau, beta, part, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_kernel<<<dim3((H + kSumThreads - 1) / kSumThreads, P), kSumThreads, 0, s>>>(
+      part, H, n_chunks, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,11 +253,9 @@ int esac_soft_inlier_select(const float* poses, const float* coords, const float
                             const float* f, const float* c, int P, int H, int N, int G,
                             int n_chunks, int cells, float tau, float beta, float* part,
                             int* best_idx, float* best_score, float* best_pose, void* stream) {
-  const int n_tiles = (H + kSelTile - 1) / kSelTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  select_partial_kernel<<<dim3(n_tiles * n_chunks, P), kSelTile, 0, s>>>(
-      poses, coords, pixels, f, c, P, H, N, G, cells, tau, beta, part);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_partial(poses, coords, pixels, f, c, P, H, N, G, n_chunks,
+                                         cells, tau, beta, part, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   select_final_kernel<<<P, kFinalThreads, 0, s>>>(poses, part, H, n_chunks, best_idx,
                                                   best_score, best_pose);

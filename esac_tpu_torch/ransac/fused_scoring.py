@@ -9,6 +9,11 @@ package's two Pallas kernels, each behind a wrapper with a launch counter:
   pass, neither the error map nor the score vector reaching memory
   (``_score_select_kernel``; ``scoring_impl="fused_select"``).
 
+Both run the same partial pass over the same cell split
+(:func:`cell_chunks`) and sum each hypothesis' partials in the same order,
+so the first entry's scores at the second's winner are bit-equal to its
+best score.
+
 A wrapper launches its kernel for CUDA tensors (or raises on what the
 kernel does not take) and takes the plain PyTorch version only for CPU
 tensors; there is no fallback from the card.  The plain versions
@@ -142,12 +147,13 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of csrc/soft_inlier.cu) with its C signatures set."""
     if not getattr(lib, "_esac_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.esac_soft_inlier_scores.argtypes = [P, P, P, P, P, I, I, I, I, F, F, P, P]
+        lib.esac_soft_inlier_scores.argtypes = [P, P, P, P, P, I, I, I, I, I, I, F, F,
+                                                P, P, P]
         lib.esac_soft_inlier_scores.restype = I
         lib.esac_soft_inlier_select.argtypes = [P, P, P, P, P, I, I, I, I, I, I, F, F,
                                                 P, P, P, P, P]
         lib.esac_soft_inlier_select.restype = I
-        for fn in (lib.esac_select_blocks_per_sm, lib.esac_select_tile):
+        for fn in (lib.esac_partial_blocks_per_sm, lib.esac_partial_tile):
             fn.argtypes = []
             fn.restype = I
         lib._esac_typed = True
@@ -211,47 +217,20 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_scores(op, out, tau, beta, stream) -> int:
-    """Launch the scoring kernel on operands packed by
-    :func:`_kernel_operands` into ``out`` (P, H); returns the cudaError."""
-    return _lib().esac_soft_inlier_scores(
-        _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
-        _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], float(tau), float(beta),
-        _ptr(out), stream)
-
-
-def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
-    """Scores of every hypothesis: (..., H) float32.  CUDA tensors launch
-    the hand-written kernel (one launch for all problems); CPU tensors take
-    :func:`_scores_plain`.  Shapes as in the module docstring."""
-    if not Rs.is_cuda:
-        return _scores_plain(Rs, ts, coords, pixels, f, c, tau, beta)
-    op = _kernel_operands(Rs, ts, coords, pixels, f, c)
-    out = torch.empty((op["P"], op["H"]), dtype=torch.float32, device=Rs.device)
-    with torch.cuda.device(Rs.device):
-        err = _launch_scores(op, out, tau, beta, _stream(Rs.device))
-    soft_inlier_scores_kernel.launches += 1
-    _check(err, "esac_soft_inlier_scores")
-    return out.reshape(op["lead"] + (op["H"],))
-
-
-soft_inlier_scores_kernel.launches = 0
-
-
 MIN_CHUNK_CELLS = 32
-SELECT_WAVES = 4
+CHUNK_WAVES = 4
 
 
-def select_cell_chunks(P: int, H: int, N: int, resident_blocks: int,
-                       tile: int = 128, waves: int = SELECT_WAVES) -> tuple[int, int]:
-    """How the select kernel's partial pass splits the N cells: ``(S,
-    cells)``, chunk s covering cells [s * cells, min(N, (s + 1) * cells)).
-    The grid is P x ceil(H / tile) x S blocks; S is the most chunks that
-    keep it within ``waves`` waves of the ``resident_blocks`` the card
-    holds at once -- several short waves, so SMs that finish early take
-    more blocks -- with at least ``MIN_CHUNK_CELLS`` cells a chunk (the
-    last may hold fewer) and S = 1 where P alone fills the card.  Every
-    cell falls in exactly one chunk."""
+def cell_chunks(P: int, H: int, N: int, resident_blocks: int,
+                tile: int = 128, waves: int = CHUNK_WAVES) -> tuple[int, int]:
+    """How the kernels' partial pass splits the N cells: ``(S, cells)``,
+    chunk s covering cells [s * cells, min(N, (s + 1) * cells)).  The grid
+    is P x ceil(H / tile) x S blocks; S is the most chunks that keep it
+    within ``waves`` waves of the ``resident_blocks`` the card holds at
+    once -- several short waves, so SMs that finish early take more blocks
+    -- with at least ``MIN_CHUNK_CELLS`` cells a chunk (the last may hold
+    fewer) and S = 1 where P alone fills the card.  Every cell falls in
+    exactly one chunk."""
     blocks = P * -(-H // tile)
     want = max(1, waves * resident_blocks // blocks)
     cells = max(MIN_CHUNK_CELLS, -(-N // want))
@@ -259,44 +238,92 @@ def select_cell_chunks(P: int, H: int, N: int, resident_blocks: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _select_shape(device_index: int) -> tuple[int, int]:
+def _partial_shape(device_index: int) -> tuple[int, int]:
     """(resident blocks of the partial pass on the whole card, tile)."""
     lib = _lib()
     with torch.cuda.device(device_index):
-        per_sm = lib.esac_select_blocks_per_sm()
+        per_sm = lib.esac_partial_blocks_per_sm()
     if per_sm < 1:
-        raise RuntimeError("esac_select_blocks_per_sm: occupancy query failed")
+        raise RuntimeError("esac_partial_blocks_per_sm: occupancy query failed")
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return per_sm * sms, lib.esac_select_tile()
+    return per_sm * sms, lib.esac_partial_tile()
 
 
-def _select_buffers(op, dev, split=None):
-    """Outputs and the (P, S, H) partial-sum scratch of the select kernel
-    for operands ``op``, with the cell split ``(S, cells)``: by default
-    :func:`select_cell_chunks` at the card's resident blocks."""
+def _partial_buffers(op, dev, split=None) -> dict:
+    """The cell split ``(S, cells)`` -- by default :func:`cell_chunks` at
+    the card's resident blocks, so both entries run the same split for one
+    set of operands -- and the (P, S, H) partial-sum scratch."""
     P, H = op["P"], op["H"]
     if split is None:
-        resident, tile = _select_shape(dev.index)
-        split = select_cell_chunks(P, H, op["N"], resident, tile)
+        resident, tile = _partial_shape(dev.index)
+        split = cell_chunks(P, H, op["N"], resident, tile)
     S, cells = split
-    return dict(
-        S=S, cells=cells,
-        part=torch.empty((P, S, H), dtype=torch.float32, device=dev),
-        best_idx=torch.empty((P,), dtype=torch.int32, device=dev),
-        best_score=torch.empty((P,), dtype=torch.float32, device=dev),
-        best_pose=torch.empty((P, 12), dtype=torch.float32, device=dev),
-    )
+    return dict(S=S, cells=cells,
+                part=torch.empty((P, S, H), dtype=torch.float32, device=dev))
+
+
+def _score_buffers(op, dev, split=None) -> dict:
+    """:func:`_partial_buffers` and the (P, H) scores of the scoring kernel."""
+    buf = _partial_buffers(op, dev, split)
+    buf["out"] = torch.empty((op["P"], op["H"]), dtype=torch.float32, device=dev)
+    return buf
+
+
+def _select_buffers(op, dev, split=None) -> dict:
+    """:func:`_partial_buffers` and the outputs of the score+select kernel."""
+    buf = _partial_buffers(op, dev, split)
+    P = op["P"]
+    buf.update(best_idx=torch.empty((P,), dtype=torch.int32, device=dev),
+               best_score=torch.empty((P,), dtype=torch.float32, device=dev),
+               best_pose=torch.empty((P, 12), dtype=torch.float32, device=dev))
+    return buf
+
+
+def _common_args(op, buf, tau, beta) -> tuple:
+    """The C arguments both entries share, up to the partial-sum scratch."""
+    return (_ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
+            _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], buf["S"], buf["cells"],
+            float(tau), float(beta), _ptr(buf["part"]))
+
+
+def _launch_scores(op, buf, tau, beta, stream, lib=None) -> int:
+    """Launch the scoring kernel on operands packed by
+    :func:`_kernel_operands` into buffers from :func:`_score_buffers`
+    (``lib``: another build of the source, for tools/kernel_bound.py);
+    returns the cudaError."""
+    return (lib or _lib()).esac_soft_inlier_scores(
+        *_common_args(op, buf, tau, beta), _ptr(buf["out"]), stream)
+
+
+def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
+    """Scores of every hypothesis: (..., H) float32.  CUDA tensors launch
+    the hand-written kernel (one launch for all problems); CPU tensors take
+    :func:`_scores_plain`.  Shapes as in the module docstring.  On one set
+    of operands its scores at :func:`soft_inlier_score_select`'s winner
+    equal that entry's best score bit for bit (the same partial sums, added
+    in the same order)."""
+    if not Rs.is_cuda:
+        return _scores_plain(Rs, ts, coords, pixels, f, c, tau, beta)
+    op = _kernel_operands(Rs, ts, coords, pixels, f, c)
+    dev = Rs.device
+    buf = _score_buffers(op, dev)
+    with torch.cuda.device(dev):
+        err = _launch_scores(op, buf, tau, beta, _stream(dev))
+    soft_inlier_scores_kernel.launches += 1
+    _check(err, "esac_soft_inlier_scores")
+    return buf["out"].reshape(op["lead"] + (op["H"],))
+
+
+soft_inlier_scores_kernel.launches = 0
 
 
 def _launch_select(op, buf, tau, beta, stream, lib=None) -> int:
     """Launch the score+select kernel on operands packed by
     :func:`_kernel_operands` into buffers from :func:`_select_buffers`
-    (``lib``: another build of the source, for tools/select_bound.py);
+    (``lib``: another build of the source, for tools/kernel_bound.py);
     returns the cudaError."""
     return (lib or _lib()).esac_soft_inlier_select(
-        _ptr(op["poses"]), _ptr(op["coords"]), _ptr(op["pixels"]), _ptr(op["f"]),
-        _ptr(op["c"]), op["P"], op["H"], op["N"], op["G"], buf["S"], buf["cells"],
-        float(tau), float(beta), _ptr(buf["part"]), _ptr(buf["best_idx"]),
+        *_common_args(op, buf, tau, beta), _ptr(buf["best_idx"]),
         _ptr(buf["best_score"]), _ptr(buf["best_pose"]), stream)
 
 

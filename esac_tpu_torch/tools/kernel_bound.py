@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""What bounds the score+select kernel on the card.
+"""What bounds the scoring kernels on the card.
 
-    python3 esac_tpu_torch/tools/select_bound.py [--seed 0]
+    python3 esac_tpu_torch/tools/kernel_bound.py [--seed 0]
 
 Needs one CUDA GPU and nvcc.  Builds ``csrc/soft_inlier.cu`` several ways
-into ``esac_tpu_torch/build/select_bound/`` (gitignored), all ``nvcc``
+into ``esac_tpu_torch/build/kernel_bound/`` (gitignored), all ``nvcc``
 processes started together:
 
 - ``ieee``: the served build (the flags of ``_build.py``);
-- ``blocks8`` / ``blocks12``: the same with ``-DSELECT_BLOCKS_PER_SM`` at 8
+- ``blocks8`` / ``blocks12``: the same with ``-DPARTIAL_BLOCKS_PER_SM`` at 8
   and 12 (the register cap the launch bounds ask of ptxas, hence occupancy);
 - ``fast_math``: ``--use_fast_math`` (approximate sqrt, exp and division).
   A diagnostic of what the IEEE sequences cost; it is never served.
 
-For each build it prints the partial pass's registers and spills (ptxas),
-its resident blocks per SM, and the CUDA-event time of the select launch
+For each build it prints the registers and spills (ptxas) of the partial
+pass, which both entries launch, and of each entry's final pass (the score
+entry's sum pass, the select entry's first-max pass), the partial pass's
+resident blocks per SM, and the CUDA-event times of each entry's launch
 alone (operands packed once) at the serving shape (4 frames x 7 experts,
-H = 256, N = 4800) for cell splits of 1, 2, 4 and 8 waves, with the winner
-checked against the plain version.  From the served build's SASS
-(``cuobjdump -sass``) it counts the instructions of one (hypothesis, cell)
-pair: the distance between consecutive shared-memory cell loads (LDS.128)
-of the unrolled inner loop, and the slow-path calls and special-function
+H = 256, N = 4800) for cell splits of 1, 2, 4 and 8 waves, each checked
+against the plain version.  From the served build's SASS (``cuobjdump
+-sass``) it counts the instructions of one (hypothesis, cell) pair of the
+partial pass -- the one kernel both entries run, so one count covers both:
+the distance between consecutive shared-memory cell loads (LDS.128) of the
+unrolled inner loop, and the slow-path calls and special-function
 instructions inside it.  Prints one JSON object, after the card's
 nvidia-smi name and power limit.
 """
@@ -40,11 +43,12 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BUILDS = {
     "ieee": [],
-    "blocks8": ["-DSELECT_BLOCKS_PER_SM=8"],
-    "blocks12": ["-DSELECT_BLOCKS_PER_SM=12"],
+    "blocks8": ["-DPARTIAL_BLOCKS_PER_SM=8"],
+    "blocks12": ["-DPARTIAL_BLOCKS_PER_SM=12"],
     "fast_math": ["--use_fast_math"],
 }
 WAVES = (1, 2, 4, 8)
+KERNELS = ("partial_kernel", "sum_kernel", "select_final_kernel")
 
 
 def build(out_dir: pathlib.Path) -> dict[str, tuple[pathlib.Path, str]]:
@@ -67,9 +71,9 @@ def build(out_dir: pathlib.Path) -> dict[str, tuple[pathlib.Path, str]]:
     return built
 
 
-def partial_ptxas(log: str) -> dict:
-    """Registers and spill stores of select_partial_kernel from ptxas -v."""
-    part = log.split("select_partial_kernel", 1)[1]
+def ptxas(log: str, kernel: str) -> dict:
+    """Registers and spill stores of ``kernel`` from ptxas -v."""
+    part = log.split(kernel, 1)[1]
     return dict(registers=int(re.search(r"Used (\d+) registers", part).group(1)),
                 spill_store_bytes=int(re.search(r"(\d+) bytes spill stores", part).group(1)))
 
@@ -81,12 +85,13 @@ def sass_per_pair(lib: pathlib.Path) -> dict:
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     fn = next(f for f in re.split(r"\n\s*Function : ", sass)
-              if "select_partial_kernel" in f.split("\n", 1)[0])
+              if "partial_kernel" in f.split("\n", 1)[0])
     ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
     loads = [i for i, op in enumerate(ops) if op == "LDS.128"]
     gaps = [b - a for a, b in zip(loads, loads[1:])]
     pair = collections.Counter(ops[loads[0]:loads[1]])
-    return dict(instructions_per_pair=statistics.median(gaps), gaps=gaps,
+    return dict(kernel="partial_kernel (both entries)",
+                instructions_per_pair=statistics.median(gaps), gaps=gaps,
                 slow_path_calls_per_pair=pair["CALL.REL.NOINC"],
                 branches_per_pair=pair["BRA"],
                 mufu_per_pair=sum(v for k, v in pair.items() if k.startswith("MUFU")))
@@ -102,24 +107,32 @@ def time_builds(built, seed: int) -> dict:
     Rs, ts, coords, pixels, f, c = cs._scoring_inputs(dev, seed, 4, 7, 256, 480, 640)
     op = fs._kernel_operands(Rs, ts, coords, pixels, f, c)
     P, H, N = op["P"], op["H"], op["N"]
-    want_i, want_s, _ = fs._select_plain(Rs, ts, coords, pixels, f, c, 10.0, 0.5)
+    args = (Rs, ts, coords, pixels, f, c, 10.0, 0.5)
+    want_scores = fs._scores_plain(*args).reshape(P, H)
+    want_i, want_s, _ = fs._select_plain(*args)
     stream = fs._stream(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for name, (path, log) in built.items():
         lib = fs._typed(ctypes.CDLL(str(path)))
-        per_sm, tile = lib.esac_select_blocks_per_sm(), lib.esac_select_tile()
-        row = dict(partial_ptxas(log), blocks_per_sm=per_sm)
+        per_sm, tile = lib.esac_partial_blocks_per_sm(), lib.esac_partial_tile()
+        row = {k: ptxas(log, k) for k in KERNELS}
+        row["partial_blocks_per_sm"] = per_sm
         for waves in WAVES:
-            buf = fs._select_buffers(op, dev, fs.select_cell_chunks(
-                P, H, N, per_sm * sms, tile, waves))
-            fs._check(fs._launch_select(op, buf, 10.0, 0.5, stream, lib), name)
-            ok = torch.equal(buf["best_idx"].long(), want_i.reshape(-1)) and torch.allclose(
-                buf["best_score"], want_s.reshape(-1), **cs.SCORE_TOL)
-            ms = cs.time_ms(lambda: fs._launch_select(op, buf, 10.0, 0.5, stream, lib), dev,
-                            reps=50)
-            row[f"waves{waves}"] = dict(S=buf["S"], cells=buf["cells"], kernel_ms=ms,
-                                        agrees_with_plain=ok)
+            split = fs.cell_chunks(P, H, N, per_sm * sms, tile, waves)
+            sel, sc = fs._select_buffers(op, dev, split), fs._score_buffers(op, dev, split)
+            fs._check(fs._launch_select(op, sel, 10.0, 0.5, stream, lib), name)
+            fs._check(fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), name)
+            select_ok = torch.equal(sel["best_idx"].long(), want_i.reshape(-1)) and \
+                torch.allclose(sel["best_score"], want_s.reshape(-1), **cs.SCORE_TOL)
+            scores_ok = torch.allclose(sc["out"], want_scores, **cs.SCORE_TOL)
+            row[f"waves{waves}"] = dict(
+                S=sel["S"], cells=sel["cells"],
+                select_kernel_ms=cs.time_ms(
+                    lambda: fs._launch_select(op, sel, 10.0, 0.5, stream, lib), dev, reps=50),
+                score_kernel_ms=cs.time_ms(
+                    lambda: fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), dev, reps=50),
+                select_agrees_with_plain=select_ok, scores_agree_with_plain=scores_ok)
         out[name] = row
         print(name, json.dumps(row), flush=True)
     return out
@@ -133,9 +146,9 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("select_bound: no CUDA GPU", file=sys.stderr)
+        print("kernel_bound: no CUDA GPU", file=sys.stderr)
         return 1
-    built = build(ROOT / "esac_tpu_torch" / "build" / "select_bound")
+    built = build(ROOT / "esac_tpu_torch" / "build" / "kernel_bound")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     result = dict(device=smi, sass=sass_per_pair(built["ieee"][0]),

@@ -11,6 +11,11 @@ Winner indices are compared exactly on fixtures without near ties; winner
 pose rows are bit-equal to the input row.
 """
 
+import ctypes
+import pathlib
+import re
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -185,11 +190,11 @@ def test_kernel_operands_reject_what_the_kernel_does_not_take():
     (40000, 256, 4800),  # P alone fills the card: no split
 ])
 def test_select_cell_chunks_tile_the_cells_once(P, H, N, resident):
-    """The select kernel's cell split (pure Python, run by the wrapper on
-    the card): the chunks tile [0, N) exactly once, each holds at least 32
+    """The kernels' cell split (pure Python, run by both wrappers on the
+    card): the chunks tile [0, N) exactly once, each holds at least 32
     cells but the last, the grid stays within CUDA's limits, and it fills
-    the card for at most SELECT_WAVES waves wherever the cells allow."""
-    S, cells = fs.select_cell_chunks(P, H, N, resident)
+    the card for at most CHUNK_WAVES waves wherever the cells allow."""
+    S, cells = fs.cell_chunks(P, H, N, resident)
     chunks = [range(s * cells, min(N, (s + 1) * cells)) for s in range(S)]
     assert [n for ch in chunks for n in ch] == list(range(N))
     assert all(len(ch) >= fs.MIN_CHUNK_CELLS for ch in chunks[:-1]) and len(chunks[-1]) >= 1
@@ -197,8 +202,63 @@ def test_select_cell_chunks_tile_the_cells_once(P, H, N, resident):
     grid_x, grid_y = tiles * S, P
     assert 1 <= grid_x < 2 ** 31 and 1 <= grid_y < 65536
     blocks = P * tiles * S
-    full = fs.SELECT_WAVES * resident
+    full = fs.CHUNK_WAVES * resident
     if S > 1:
         assert blocks <= full
     if N >= fs.MIN_CHUNK_CELLS * (full // (P * tiles)):
         assert blocks >= min(full, P * tiles) // 2
+
+
+CSRC = pathlib.Path(fs.__file__).resolve().parents[1] / "csrc" / "soft_inlier.cu"
+C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_signatures(src: str) -> dict:
+    """{name: [ctypes type per parameter]} of every function defined in the
+    ``extern "C"`` block of a CUDA source: a pointer maps to c_void_p."""
+    block = src.split('extern "C" {', 1)[1]
+    sigs = {}
+    for m in re.finditer(r"^int\s+(\w+)\(([^)]*)\)\s*\{", block, re.M):
+        params = [" ".join(a.split()) for a in m.group(2).split(",") if a.strip()]
+        sigs[m.group(1)] = [ctypes.c_void_p if "*" in a else C_TYPES[a.rsplit(" ", 1)[0]]
+                            for a in params]
+    return sigs
+
+
+def test_typed_argtypes_match_the_c_signatures():
+    """fused_scoring._typed, run on a stand-in for the library (there is none
+    here), declares for every function of soft_inlier.cu's extern "C" block
+    as many argtypes as the C signature has parameters, each of the matching
+    ctypes type, and an int result: a mismatch would only show on the card."""
+    sigs = _c_signatures(CSRC.read_text())
+    assert {"esac_soft_inlier_scores", "esac_soft_inlier_select"} <= set(sigs)
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in sigs})
+    fs._typed(lib)
+    for name, want in sigs.items():
+        assert getattr(lib, name).argtypes == want, name
+        assert getattr(lib, name).restype is ctypes.c_int, name
+    assert len(sigs["esac_soft_inlier_scores"]) == 16
+    assert len(sigs["esac_soft_inlier_select"]) == 18
+
+
+@pytest.mark.parametrize("resident", [10 * 132, 2 * 132])
+@pytest.mark.parametrize("B,M,H,N", [
+    (4, 7, 256, 4800),   # the serving shape, P = 28
+    (16, 7, 256, 4800),  # the 16-frame bucket, P = 112
+    (3, 1, 40, 300),     # ragged H and N
+])
+def test_score_buffers_follow_the_cell_split(B, M, H, N, resident):
+    """The score wrapper's buffers for a split from cell_chunks at an
+    injected resident count: a (P, S, H) partial-sum scratch and (P, H)
+    scores; the select wrapper's scratch for the same split is the same
+    shape, so both entries run one partial pass."""
+    zeros = torch.zeros
+    op = fs._kernel_operands(zeros(B, M, H, 3, 3), zeros(B, M, H, 3), zeros(B, M, N, 3),
+                             zeros(B, N, 2), zeros(B, M), zeros(2))
+    P = B * M
+    split = fs.cell_chunks(P, H, N, resident)
+    buf = fs._score_buffers(op, torch.device("cpu"), split)
+    assert (buf["S"], buf["cells"]) == split
+    assert buf["part"].shape == (P, split[0], H) and buf["out"].shape == (P, H)
+    assert buf["part"].dtype == buf["out"].dtype == torch.float32
+    assert fs._select_buffers(op, torch.device("cpu"), split)["part"].shape == (P, split[0], H)
