@@ -11,8 +11,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 3. kernels    -- each CUDA kernel against its plain PyTorch version on the
                  card, at the serving shapes (P = 4 frames x 7 experts,
                  H = 256, N = 4800), at the 16-frame and 1-frame serving
-                 buckets (P = 112, P = 7) and at ragged shapes (H = 40,
-                 N = 300): scores
+                 buckets (P = 112, P = 7), at the training shape of phase 6
+                 (P = 14) and at ragged shapes (H = 40, N = 300): scores
                  allclose (rtol 1e-5, atol 1e-3: the same float32 formula
                  summed in another order), winner index equal where the top
                  two plain scores are further apart than that tolerance,
@@ -35,16 +35,39 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  into the (1, 4, 16, 64) buckets, under "fused_select" and
                  "pallas" on the same seeds, and under the plain "errmap"
                  path; "pallas" and "fused_select" give bit-equal winning
-                 scores and experts, "errmap" agrees within the tolerance.
+                 scores and experts, "errmap" agrees within the tolerance;
+6. training   -- (a) both kernels' autograd Functions at P = 2 frames x 7
+                 experts, H = 256, N = 4800: the forwards against the plain
+                 versions (the tolerance of phase 3) and against a second
+                 call (bit-identical); gradients with respect to Rs, ts and
+                 coords against autograd of the plain versions on the card
+                 (max |err| <= 1e-5 of the largest entry: the same plain
+                 formula, the shared coords gradient summed in another
+                 order), the select's zero outside the winners' rows;
+                 CUDA-event times of the kernel forward, the Function's
+                 backward (the plain recompute) and the plain forward +
+                 backward.  (b) 3 full-width training steps
+                 (make_esac_train_step: the phase-5 preset in train mode,
+                 2 synthetic frames a step, n_hyps 256, one refine round,
+                 alpha 0.5, Adam at lr 3e-6 after a clip to norm 1.0) under
+                 "pallas" and under "errmap" from the same weights and
+                 seeds: finite losses, finite gradients, a non-zero
+                 gradient on every expert and on the gating net, first-step
+                 losses of the two impls within rtol 1e-3; the step time,
+                 its split into stages (CUDA events recorded by the step's
+                 own stage hook), peak memory, and one "pallas" step under
+                 torch.profiler (device busy time, idle share, the ops
+                 with the most device time).
 
-Around every call of an entry point in phases 4 and 5 the kernels' launch
+Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
 call must launch the select kernel exactly once and the scoring kernel
-never, a "pallas" call the reverse, an "errmap" call neither.
+never, a "pallas" call the reverse, an "errmap" call neither; a training
+step counts as one call (its backward launches nothing).
 
-Before the last line it prints one JSON line {"kernels": [...]} and the
-nvidia-smi name/power-limit line; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Before the last line it prints one JSON line {"training": {...}}, one JSON
+line {"kernels": [...]} and the nvidia-smi name/power-limit line; the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -83,9 +106,18 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "serving": (4, 7, 256, 480, 640),
     "frames16": (16, 7, 256, 480, 640),
     "frames1": (1, 7, 256, 480, 640),
+    "train": (2, 7, 256, 480, 640),
     "ragged": (3, 1, 40, 120, 160),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
+# Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
+# and the training run (BASELINE config #2 at full width, as
+# train_esac.py:139-141 configures RANSAC, with its fine-tune recipe).
+TRAIN_FUNCTION_SHAPE = (2, 7, 256, 480, 640)
+TRAIN_SIZE = dict(height=480, width=640, arch="ref", experts=7, frames=2, steps=3,
+                  n_hyps=256, lr=3e-6, clip_norm=1.0)
+GRAD_RTOL = 1e-5
+STEP_LOSS_RTOL = 1e-3
 
 
 def log(*parts) -> None:
@@ -502,24 +534,26 @@ def phase_serving(dev, seed):
     for lanes in (4, 16):
         stages[lanes] = _stage_breakdown(dev, params, preset, requests[-1][:lanes])
         if dev.type == "cuda":
-            busy[lanes] = _device_busy(dev, fns["fused_select"], params, {
-                "image": requests[-1][:lanes], "seed": np.arange(lanes)})
+            batch = {"image": requests[-1][:lanes], "seed": np.arange(lanes)}
+            busy[lanes] = _device_busy(
+                dev, lambda: fns["fused_select"](params, batch),
+                f"[serving] profiled {lanes}-lane fused_select dispatch")
     return dict(dispatches=dispatches, launches=launches, peak_bytes=peak,
                 stages=stages, device_busy=busy)
 
 
-def _device_busy(dev, fn, params, batch, top=6):
-    """One dispatch under torch.profiler: the union of its device-activity
-    intervals over the (profiled) wall time, and the ops with the most
-    device time."""
+def _device_busy(dev, run, label, top=6):
+    """One call of ``run()`` under torch.profiler (after one unprofiled
+    call): the union of its device-activity intervals over the (profiled)
+    wall time, and the ops with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn(params, batch)
+    run()
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(params, batch)
+        run()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -531,9 +565,7 @@ def _device_busy(dev, fn, params, batch, top=6):
     ops = sorted((k for k in prof.key_averages() if k.key.startswith("aten::")),
                  key=lambda k: -k.device_time_total)
     heavy = {k.key: round(k.device_time_total / 1e3, 3) for k in ops[:top]}
-    lanes = len(batch["image"])
-    log(f"[serving] profiled {lanes}-lane fused_select dispatch: device busy "
-        f"{busy_us / 1e3:.2f} of {wall_us / 1e3:.2f} ms wall "
+    log(f"{label}: device busy {busy_us / 1e3:.2f} of {wall_us / 1e3:.2f} ms wall "
         f"(idle share {1 - busy_us / wall_us:.3f}); device ms by op {heavy}")
     return dict(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
                 idle_share=1 - busy_us / wall_us, device_ms_by_op=heavy)
@@ -591,6 +623,251 @@ def _stage_breakdown(dev, params, preset, images):
     return stages
 
 
+def _grads_agree(got, want, what):
+    """max |got - want| <= GRAD_RTOL of max |want|, per tensor; returns the
+    largest relative error."""
+    worst = 0.0
+    for name, a, b in zip(("Rs", "ts", "coords"), got, want):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not (err <= GRAD_RTOL and _finite(a)):
+            raise AssertionError(f"{what}: {name} gradient off the plain version by {err:.3g} "
+                                 f"of its largest entry (tolerance {GRAD_RTOL})")
+        worst = max(worst, err)
+    return worst
+
+
+def _finite(x) -> bool:
+    import torch
+
+    return bool(torch.isfinite(x).all())
+
+
+def _train_functions(dev, seed):
+    """Phase 6 (a): SoftInlierScores and SoftInlierScoreSelect on the card
+    against autograd of the plain versions, and their times."""
+    import torch
+
+    from esac_tpu_torch.ransac import fused_scoring as fs
+
+    B, M, H, height, width = TRAIN_FUNCTION_SHAPE
+    Rs, ts, coords, pixels, f, c = _scoring_inputs(dev, seed, B, M, H, height, width)
+    tau, beta = 10.0, 0.5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn(Rs.shape[:-2], generator=gen, device=dev)
+
+    def leaves():
+        return [x.detach().clone().requires_grad_(True) for x in (Rs, ts, coords)]
+
+    # Each forward launches its kernel once; a backward, the plain
+    # recompute, launches nothing (counted as an "errmap" call).
+    a = leaves()
+    scores, n_fwd = counted(dev, "pallas", "SoftInlierScores forward", lambda: (
+        fs.soft_inlier_scores_kernel(*a, pixels, f, c, tau, beta)))
+    if type(scores.grad_fn).__name__ != "SoftInlierScoresBackward":
+        raise AssertionError(f"scores on inputs that require grad: grad_fn {scores.grad_fn}")
+    # The forward is the kernel at the training shape: held against the
+    # plain version and against itself, as phase 3 holds it.
+    p_scores = fs._scores_plain(Rs, ts, coords, pixels, f, c, tau, beta)
+    err_fwd = float((scores.detach() - p_scores).abs().max())
+    if not torch.allclose(scores.detach(), p_scores, **SCORE_TOL):
+        raise AssertionError(f"SoftInlierScores forward vs plain max |err| {err_fwd}")
+    if not torch.equal(scores.detach(), fs.soft_inlier_scores_kernel(*leaves(), pixels, f, c,
+                                                                     tau, beta).detach()):
+        raise AssertionError("two SoftInlierScores forwards on the same inputs differ")
+    loss = torch.sum(scores * cot)
+    g_fn, n_bwd = counted(dev, "errmap", "SoftInlierScores backward",
+                          lambda: torch.autograd.grad(loss, a, retain_graph=True))
+    b = leaves()
+    g_plain = torch.autograd.grad(torch.sum(fs._scores_plain(*b, pixels, f, c, tau, beta)
+                                            * cot), b)
+    err_scores = _grads_agree(g_fn, g_plain, "SoftInlierScores")
+
+    a2 = leaves()
+    (best, best_s, _), n_sel = counted(dev, "fused_select", "SoftInlierScoreSelect forward",
+                                       lambda: fs.soft_inlier_score_select(
+                                           *a2, pixels, f, c, tau, beta))
+    p_best, p_best_s, _ = fs._select_plain(Rs, ts, coords, pixels, f, c, tau, beta)
+    top2 = p_scores.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > (SCORE_TOL["atol"] + SCORE_TOL["rtol"] * top2[..., 0])
+    if not (torch.equal(best[clear], p_best[clear])
+            and torch.allclose(best_s.detach(), p_best_s, **SCORE_TOL)):
+        raise AssertionError("SoftInlierScoreSelect forward: winner or best score vs plain")
+    if not torch.equal(scores.detach().gather(-1, best[..., None])[..., 0], best_s.detach()):
+        raise AssertionError("SoftInlierScoreSelect best score != the scoring kernel's "
+                             "score at its winner")
+    loss_sel = torch.sum(best_s * cot[..., 0])
+    g_sel, _ = counted(dev, "errmap", "SoftInlierScoreSelect backward",
+                       lambda: torch.autograd.grad(loss_sel, a2, retain_graph=True))
+    b2 = leaves()
+    plain_best = fs._scores_plain(*b2, pixels, f, c, tau, beta).gather(-1, best[..., None])
+    g_sel_plain = torch.autograd.grad(torch.sum(plain_best[..., 0] * cot[..., 0]), b2)
+    err_select = _grads_agree(g_sel, g_sel_plain, "SoftInlierScoreSelect")
+    rows = g_sel[0].abs().sum((-1, -2)) + g_sel[1].abs().sum(-1)  # (B, M, H)
+    winner = torch.zeros_like(rows, dtype=torch.bool).scatter_(-1, best[..., None], True)
+    if bool((rows[~winner] != 0).any()):
+        raise AssertionError("SoftInlierScoreSelect: a gradient outside the winners' rows")
+
+    ms = {
+        "scores_kernel_forward": time_ms(
+            lambda: fs.soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta), dev),
+        "scores_function_backward": time_ms(
+            lambda: torch.autograd.grad(loss, a, retain_graph=True), dev, reps=5),
+        "scores_plain_forward_backward": time_ms(
+            lambda: torch.autograd.grad(torch.sum(
+                fs._scores_plain(*b, pixels, f, c, tau, beta) * cot), b), dev, reps=5),
+        "select_kernel_forward": time_ms(
+            lambda: fs.soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta), dev),
+        "select_function_backward": time_ms(
+            lambda: torch.autograd.grad(loss_sel, a2, retain_graph=True), dev, reps=5),
+    }
+    log(f"[training] Functions at P={B * M} H={H} N={coords.shape[-2]}: forward launches "
+        f"{n_fwd} / {n_sel}, backward launches {n_bwd}; forward scores max |err| vs plain "
+        f"{err_fwd:.3g} (rtol 1e-5, atol 1e-3), two forwards bit-identical, select winners "
+        f"checked {int(clear.sum())}/{B * M}; gradient max |err| vs autograd of "
+        f"the plain version {err_scores:.3g} (scores), {err_select:.3g} (select, winner rows "
+        f"only) of the largest entry (tolerance {GRAD_RTOL})")
+    log("[training] Function times (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return dict(P=B * M, H=H, N=coords.shape[-2], err_forward=err_fwd,
+                err_scores=err_scores, err_select=err_select, ms=ms)
+
+
+def _train_frames(dev, rng, steps, frames, height, width):
+    """Synthetic training batches from ``rng``: uniform images and GT poses
+    with random rotations whose camera centres lie within 5 cm of the
+    origin, the scenes' (zero) centre, where the random-init experts'
+    coordinate clouds sit -- so some hypotheses' pose losses fall under the
+    clamp and every net gets a gradient."""
+    import torch
+
+    from esac_tpu_torch.geometry.rotations import rodrigues
+
+    images = rng.uniform(0, 1, (steps, frames, height, width, 3)).astype(np.float32)
+    axis = rng.normal(size=(steps, frames, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    rvecs = axis * rng.uniform(0, np.pi, (steps, frames, 1))
+    R = rodrigues(torch.as_tensor(rvecs, dtype=torch.float32, device=dev))
+    centers = torch.as_tensor(rng.uniform(-0.05, 0.05, (steps, frames, 3)),
+                              dtype=torch.float32, device=dev)
+    t = -torch.einsum("...ij,...j->...i", R, centers)
+    return torch.as_tensor(images, device=dev), R, t
+
+
+class StageClock:
+    """The training step's stage hook: a CUDA event at ``start()`` and as
+    each stage of the step has been issued, so the step runs as it always
+    does (no synchronization inside it).  ``ms()`` gives each stage's time
+    on the device's stream, from the end of the stage before it (host clock
+    when rehearsing on the CPU)."""
+
+    def __init__(self, dev):
+        self.dev, self.marks = dev, []
+
+    def _now(self):
+        import torch
+
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def start(self):
+        self.marks = [("start", self._now())]
+
+    def __call__(self, name):
+        self.marks.append((name, self._now()))
+
+    def ms(self):
+        sync(self.dev)
+        cuda = self.dev.type == "cuda"
+        return {name: a.elapsed_time(b) if cuda else (b - a) * 1e3
+                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
+
+
+def phase_training(dev, seed):
+    import torch
+
+    from esac_tpu_torch.data.synthetic import output_pixel_grid
+    from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.registry.manifest import ScenePreset
+    from esac_tpu_torch.registry.serving import init_scene_params
+    from esac_tpu_torch.train import make_esac_train_step
+
+    functions = _train_functions(dev, seed)
+    size = TRAIN_SIZE
+    height, width, steps = size["height"], size["width"], size["steps"]
+    preset = ScenePreset(height=height, width=width, num_experts=size["experts"],
+                         gating_channels=GATING_PRESETS[size["arch"]]["channels"],
+                         compute_dtype="bfloat16", **EXPERT_PRESETS[size["arch"]])
+    pixels = output_pixel_grid(height, width, preset.stride, device=dev)
+    images, R_gts, t_gts = _train_frames(dev, np.random.default_rng(seed + 3), steps,
+                                         size["frames"], height, width)
+    runs = {}
+    for impl in ("pallas", "errmap"):
+        cfg = RansacConfig(n_hyps=size["n_hyps"], train_refine_iters=1, alpha=0.5,
+                           scoring_impl=impl)
+        params = init_scene_params(preset, seed=seed, device=dev)
+        params["expert"].train()
+        params["gating"].train()
+        opt = torch.optim.Adam(list(params["expert"].parameters())
+                               + list(params["gating"].parameters()), lr=size["lr"])
+        step = make_esac_train_step(params, opt, cfg, pixels, clip_norm=size["clip_norm"],
+                                    device=dev)
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms, launches, stages_ms = [], [], [], []
+        clock = StageClock(dev)
+        for k in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            clock.start()
+            loss, n = counted(dev, impl, f"training step {k} under {impl!r}",
+                              lambda k=k: step(seed * 7919 + k, images[k], R_gts[k], t_gts[k],
+                                               on_stage=clock))
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            stages_ms.append(clock.ms())
+            launches.append(n)
+            losses.append(float(loss))
+            if not np.isfinite(losses[-1]):
+                raise AssertionError(f"{impl} step {k}: loss {losses[-1]}")
+            for name, net in [(f"expert {m}", e) for m, e in enumerate(params["expert"])] + [
+                    ("gating", params["gating"])]:
+                grads = [p.grad for p in net.parameters()]
+                if any(g is None or not _finite(g) for g in grads):
+                    raise AssertionError(f"{impl} step {k}: non-finite gradient on {name}")
+                if not any(bool((g != 0).any()) for g in grads):
+                    raise AssertionError(f"{impl} step {k}: zero gradient on {name}")
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        run = dict(losses=losses, step_ms=step_ms, launches=launches, peak_bytes=peak,
+                   stages_ms=stages_ms)
+        if impl == "pallas":
+            if dev.type == "cuda":
+                run["device_busy"] = _device_busy(
+                    dev, lambda: step(seed * 7919, images[0], R_gts[0], t_gts[0]),
+                    "[training] profiled pallas step", top=8)
+        runs[impl] = run
+        log(f"[training] {impl}: {steps} steps of {size['frames']} frames x "
+            f"{size['experts']} experts x {size['n_hyps']} hypotheses at {width}x{height}: "
+            f"losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x, 1) for x in step_ms]}, launches per step {launches}, "
+            f"peak memory {peak / 2**30:.2f} GiB")
+    first = [runs[i]["losses"][0] for i in ("pallas", "errmap")]
+    rel = abs(first[0] - first[1]) / abs(first[1])
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"first-step losses pallas {first[0]} vs errmap {first[1]}: "
+                             f"relative {rel:.3g} > {STEP_LOSS_RTOL}")
+    log(f"[training] first-step losses agree to {rel:.3g} (tolerance {STEP_LOSS_RTOL})")
+    for impl, run in runs.items():
+        stages = run["stages_ms"][-1]  # the last step: warm
+        log(f"[training] stages of the last {impl} step (ms, device stream): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f" (sum {sum(stages.values()):.1f}; step {run['step_ms'][-1]:.1f} ms wall)")
+    return dict(functions=functions, runs=runs, first_step_rel_diff=rel)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -608,6 +885,7 @@ def main(argv=None) -> int:
         kernels = phase_kernels(dev, args.seed)
         phase_recovery(dev, args.seed)
         serving = phase_serving(dev, args.seed)
+        training = phase_training(dev, args.seed)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -615,6 +893,8 @@ def main(argv=None) -> int:
     import torch
 
     k = kernels["serving"]
+    train_launches = {name: sum(n[name] for run in training["runs"].values()
+                                for n in run["launches"]) for name in KERNELS}
     line = {"kernels": [
         {"name": "soft_inlier_scores", "route": "cuda",
          "source": "esac_tpu_torch/csrc/soft_inlier.cu",
@@ -623,7 +903,8 @@ def main(argv=None) -> int:
          "max_abs_err": k["err_scores"], "ms": k["ms"]["score"],
          "kernel_ms": k["ms"]["score_kernel"], "wrapper_ms": k["ms"]["score"],
          "plain_ms": k["ms"]["score_plain"], "bound_ms": k["bound"]["score"]["bound_ms"],
-         "bound_by": k["bound"]["score"]["bound_by"], "library_ms": None},
+         "bound_by": k["bound"]["score"]["bound_by"], "library_ms": None,
+         "training_launches": train_launches["soft_inlier_scores"]},
         {"name": "soft_inlier_select", "route": "cuda",
          "source": "esac_tpu_torch/csrc/soft_inlier.cu",
          "replaces": "esac_tpu/ransac/pallas_scoring.py:301",
@@ -631,13 +912,28 @@ def main(argv=None) -> int:
          "max_abs_err": k["err_select"], "ms": k["ms"]["select"],
          "kernel_ms": k["ms"]["select_kernel"], "wrapper_ms": k["ms"]["select"],
          "plain_ms": k["ms"]["select_plain"], "bound_ms": k["bound"]["select"]["bound_ms"],
-         "bound_by": k["bound"]["select"]["bound_by"], "library_ms": None},
+         "bound_by": k["bound"]["select"]["bound_by"], "library_ms": None,
+         "training_launches": train_launches["soft_inlier_select"]},
     ]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
-                                       kernels=kernels, serving=serving), indent=1))
+                                       kernels=kernels, serving=serving, training=training),
+                                  indent=1))
+    runs = training["runs"]
+    print(json.dumps({"training": {
+        "device": name, "nvidia_smi": smi,
+        "step_ms": {impl: run["step_ms"] for impl, run in runs.items()},
+        "losses": {impl: run["losses"] for impl, run in runs.items()},
+        "stages_ms": {impl: run["stages_ms"][-1] for impl, run in runs.items()},
+        "peak_gib": {impl: run["peak_bytes"] / 2**30 for impl, run in runs.items()},
+        "launches_per_step": {impl: run["launches"] for impl, run in runs.items()},
+        "device_busy": runs["pallas"].get("device_busy"),
+        "functions_ms": training["functions"]["ms"],
+        "functions_forward_max_abs_err": training["functions"]["err_forward"],
+        "functions_max_rel_err": {"scores": training["functions"]["err_scores"],
+                                  "select": training["functions"]["err_select"]}}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

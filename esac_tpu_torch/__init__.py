@@ -13,4 +13,11 @@ run on the card unless the caller passes ``device="cpu"``; they raise when
 CUDA is missing instead of falling back.  The two soft-inlier scoring
 kernels are hand-written CUDA (``csrc/soft_inlier.cu``), built with
 ``nvcc`` at first use (``_build.py``).
+
+Training: the losses (``ransac.kernel.dsac_train_loss[_frames]``,
+``ransac.esac.esac_train_loss[_frames]``) are differentiable by autograd,
+the kernels through their ``torch.autograd.Function``s
+(``ransac.fused_scoring``), and ``train`` holds the three stages' step
+factories (``make_expert_train_step``, ``make_gating_train_step``,
+``make_dsac_train_step``, ``make_esac_train_step``).
 """

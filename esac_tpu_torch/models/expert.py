@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from esac_tpu_torch.geometry.camera import reprojection_errors
+
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` with its float32 parameters cast to ``x``'s dtype."""
@@ -90,3 +92,24 @@ class ExpertNet(nn.Module):
         x = self.coord(x.float())
         x = x.permute(0, 2, 3, 1) + self.scene_center
         return x.reshape(lead + x.shape[1:])
+
+
+def coordinate_loss(pred: torch.Tensor, target: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked mean L1 distance between predicted and GT scene coordinates
+    (counterpart of ``coordinate_loss``).  pred/target (..., 3); mask (...)
+    with 1 where the GT is valid."""
+    dist = torch.sum(torch.abs(pred - target), dim=-1)
+    if mask is None:
+        return torch.mean(dist)
+    return torch.sum(dist * mask) / (torch.sum(mask) + 1e-9)
+
+
+def reprojection_loss(pred: torch.Tensor, pixels: torch.Tensor, R_gt: torch.Tensor,
+                      t_gt: torch.Tensor, f, c: torch.Tensor,
+                      clamp_px: float = 100.0) -> torch.Tensor:
+    """Mean reprojection error under the GT pose, each cell's error clamped
+    at ``clamp_px`` (counterpart of ``models.expert.reprojection_loss``).
+    pred (N, 3), pixels (N, 2), R_gt (3, 3), t_gt (3,)."""
+    errs = reprojection_errors(R_gt, t_gt, pred, pixels, f, c)
+    return torch.mean(torch.clamp(errs, max=clamp_px))

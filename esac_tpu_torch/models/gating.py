@@ -46,3 +46,11 @@ class GatingNet(nn.Module):
         x = x.mean(dim=(2, 3)).float()  # global average pool
         x = self.dense1(F.relu(self.dense0(x)))
         return x.reshape(lead + x.shape[1:])
+
+
+def gating_cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Stage-2 loss: mean cross-entropy of ``logits`` (..., M) against the
+    GT expert ``label`` (...) (counterpart of ``gating_cross_entropy``)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    label = torch.as_tensor(label, device=logits.device).long()
+    return -torch.mean(torch.gather(logp, -1, label[..., None])[..., 0])

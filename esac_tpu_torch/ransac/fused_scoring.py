@@ -21,15 +21,20 @@ tensors; there is no fallback from the card.  The plain versions
 kernels' formula op for op and are what the CPU tests hold against the
 JAX package and what ``chip_smoke.py`` holds the kernels against.
 
+Differentiable: where an input requires grad, each wrapper goes through
+its ``torch.autograd.Function`` (:class:`SoftInlierScores`,
+:class:`SoftInlierScoreSelect`, the counterparts of the JAX package's
+``custom_vjp``s), on the CPU too.  The forward is the same kernel launch
+(or plain version); the backward launches no kernel: it recomputes the
+kernels' formula in plain PyTorch and differentiates it, as the JAX
+package's backward is plain XLA -- the scores' backward over every
+hypothesis, chunked, the select's over the winner alone.
+
 Batched layout: one call covers all P problems (frame x expert) of a
 dispatch.  Rs (..., H, 3, 3), ts (..., H, 3), coords (..., N, 3) share the
 leading problem dims; pixels are (N, 2) shared, or (G, N, 2) where the
 flattened problems fall into G equal contiguous groups (one per frame);
 f has the problem shape (or is a scalar); c is (2,).
-
-The kernel wrappers are forward-only (this slice serves): a CUDA input
-that requires grad raises.  Their autograd ``Function``s land with the
-training slice.
 """
 
 from __future__ import annotations
@@ -84,14 +89,21 @@ def soft_inlier_scores_chunked(rvecs, tvecs, coords, pixels, f, c, tau, beta,
     the hypothesis axis tiled in ``chunk``s, so the largest live
     intermediate is one (..., chunk, N) tile (counterpart of
     ``soft_inlier_scores_chunked(impl="errmap")``; the "fused" formula's
-    chunked form is :func:`_scores_plain`).  rvecs/tvecs (..., H, 3)
+    chunked form is :func:`_scores_plain`).  Under autograd each tile is
+    checkpointed, as the JAX package remats it, so the backward recomputes
+    tiles too and its peak stays one tile.  rvecs/tvecs (..., H, 3)
     axis-angle; other shapes as in :func:`soft_inlier_scores_fused`.
     Returns (..., H)."""
-    return torch.cat([
-        soft_inlier_score(reprojection_error_map(rvecs[..., s, :], tvecs[..., s, :],
-                                                 coords, pixels, f, c), tau, beta)
-        for s in _chunks(rvecs.shape[-2], chunk)
-    ], dim=-1)
+    def tile(rv, tv):
+        return soft_inlier_score(reprojection_error_map(rv, tv, coords, pixels, f, c),
+                                 tau, beta)
+
+    if torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        tile = functools.partial(checkpoint, tile, use_reentrant=False)
+    return torch.cat([tile(rvecs[..., s, :], tvecs[..., s, :])
+                      for s in _chunks(rvecs.shape[-2], chunk)], dim=-1)
 
 
 def broadcast_pixels(pixels: torch.Tensor, lead: tuple[int, ...]) -> torch.Tensor:
@@ -163,7 +175,8 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _kernel_operands(Rs, ts, coords, pixels, f, c):
     """Check and pack the kernels' operands.  Raises on anything the
     kernel does not take: a non-CUDA or mixed device, a dtype other than
-    float32, inconsistent shapes, a tensor that requires grad."""
+    float32, inconsistent shapes, a tensor that requires grad (the
+    autograd Functions hand the launch detached tensors)."""
     dev = Rs.device
     named = {"Rs": Rs, "ts": ts, "coords": coords, "pixels": pixels, "c": c}
     if torch.is_tensor(f):
@@ -175,8 +188,8 @@ def _kernel_operands(Rs, ts, coords, pixels, f, c):
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.requires_grad:
             raise RuntimeError(
-                f"{name} requires grad: the CUDA scoring kernels are "
-                "forward-only in this slice")
+                f"{name} requires grad: a raw kernel launch is not "
+                "differentiable; differentiate through the public wrapper")
     lead, H = Rs.shape[:-3], Rs.shape[-3]
     N = coords.shape[-2]
     if Rs.shape[-2:] != (3, 3) or ts.shape != lead + (H, 3):
@@ -295,15 +308,11 @@ def _launch_scores(op, buf, tau, beta, stream, lib=None) -> int:
         *_common_args(op, buf, tau, beta), _ptr(buf["out"]), stream)
 
 
-def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
-    """Scores of every hypothesis: (..., H) float32.  CUDA tensors launch
-    the hand-written kernel (one launch for all problems); CPU tensors take
-    :func:`_scores_plain`.  Shapes as in the module docstring.  On one set
-    of operands its scores at :func:`soft_inlier_score_select`'s winner
-    equal that entry's best score bit for bit (the same partial sums, added
-    in the same order)."""
+def _scores_forward(Rs, ts, coords, pixels, f, c, tau, beta, chunk):
+    """The scoring kernel's launch on CUDA tensors, :func:`_scores_plain` on
+    CPU tensors; no autograd."""
     if not Rs.is_cuda:
-        return _scores_plain(Rs, ts, coords, pixels, f, c, tau, beta)
+        return _scores_plain(Rs, ts, coords, pixels, f, c, tau, beta, chunk)
     op = _kernel_operands(Rs, ts, coords, pixels, f, c)
     dev = Rs.device
     buf = _score_buffers(op, dev)
@@ -312,6 +321,86 @@ def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta):
     soft_inlier_scores_kernel.launches += 1
     _check(err, "esac_soft_inlier_scores")
     return buf["out"].reshape(op["lead"] + (op["H"],))
+
+
+def _detached(*xs):
+    return [x.detach() if torch.is_tensor(x) else x for x in xs]
+
+
+def _leaves(xs, needs):
+    """Detached copies of ``xs`` for a backward recompute, requiring grad
+    where ``needs`` says."""
+    return [x.detach().requires_grad_(n) if torch.is_tensor(x) else x
+            for x, n in zip(xs, needs)]
+
+
+def _vjp(out, cot, leaves, needs):
+    """Gradients of sum(out * cot) with respect to the ``leaves`` marked in
+    ``needs``; None for the rest (or where nothing reaches a leaf)."""
+    wrt = [x for x, n in zip(leaves, needs) if n]
+    got = iter(torch.autograd.grad(out, wrt, cot, allow_unused=True) if wrt else ())
+    return [next(got) if n else None for n in needs]
+
+
+class SoftInlierScores(torch.autograd.Function):
+    """Scores of every hypothesis, differentiable (counterpart of
+    ``_scores_pallas_vjp``).  Forward: the scoring kernel (its plain version
+    on CPU tensors); saves only its inputs.  Backward (``_scores_bwd``):
+    recompute :func:`soft_inlier_scores_fused` under autograd, ``chunk``
+    hypotheses at a time so the peak stays one (P, chunk, N) tile, and
+    return its VJP for Rs, ts, coords, pixels, f and c, whichever require
+    grad; the gradients of the shared inputs are added over the chunks in
+    order."""
+
+    @staticmethod
+    def forward(ctx, Rs, ts, coords, pixels, f, c, tau, beta, chunk):
+        ctx.save_for_backward(Rs, ts, coords, pixels, f, c)
+        ctx.consts = (tau, beta, chunk)
+        return _scores_forward(*_detached(Rs, ts, coords, pixels, f, c), tau, beta, chunk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        tau, beta, chunk = ctx.consts
+        needs = ctx.needs_input_grad[:6]
+        Rs, ts, coords, pixels, f, c = ctx.saved_tensors
+        shared = _leaves((coords, pixels, f, c), needs[2:])
+        grads = [[], [], None, None, None, None]
+        with torch.enable_grad():
+            for s in _chunks(Rs.shape[-3], chunk):
+                R_s, t_s = _leaves((Rs[..., s, :, :], ts[..., s, :]), needs[:2])
+                out = soft_inlier_scores_fused(
+                    R_s, t_s, shared[0], broadcast_pixels(shared[1], Rs.shape[:-3]),
+                    *shared[2:], tau, beta)
+                got = _vjp(out, g[..., s], [R_s, t_s] + shared, needs)
+                for k in (0, 1):
+                    grads[k].append(got[k])
+                for k in range(2, 6):
+                    if got[k] is not None:
+                        grads[k] = got[k] if grads[k] is None else grads[k] + got[k]
+        for k, dim in ((0, -3), (1, -2)):
+            grads[k] = torch.cat(grads[k], dim=dim) if needs[k] else None
+        return (*grads, None, None, None)
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(x) and x.requires_grad for x in xs)
+
+
+def soft_inlier_scores_kernel(Rs, ts, coords, pixels, f, c, tau, beta, chunk=64):
+    """Scores of every hypothesis: (..., H) float32.  CUDA tensors launch
+    the hand-written kernel (one launch for all problems); CPU tensors take
+    :func:`_scores_plain`.  Shapes as in the module docstring.  On one set
+    of operands its scores at :func:`soft_inlier_score_select`'s winner
+    equal that entry's best score bit for bit (the same partial sums, added
+    in the same order).  Where an input requires grad the call goes through
+    :class:`SoftInlierScores` (the same forward); ``chunk`` is the
+    hypothesis tile of the plain version and of the backward recompute."""
+    if _needs_grad(Rs, ts, coords, pixels, f, c):
+        f = torch.as_tensor(f, dtype=torch.float32, device=Rs.device)
+        return SoftInlierScores.apply(Rs, ts, coords, pixels, f, c, tau, beta, chunk)
+    return _scores_forward(Rs, ts, coords, pixels, f, c, tau, beta, chunk)
 
 
 soft_inlier_scores_kernel.launches = 0
@@ -327,12 +416,9 @@ def _launch_select(op, buf, tau, beta, stream, lib=None) -> int:
         _ptr(buf["best_score"]), _ptr(buf["best_pose"]), stream)
 
 
-def soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta):
-    """Fused score + first-max select: (best_idx (...) int64, best_score
-    (...) float32, best_pose (..., 12) -- the winner's [R | t] row,
-    bit-equal to the input row).  CUDA tensors launch the hand-written
-    kernel (one launch for all problems); CPU tensors take
-    :func:`_select_plain`."""
+def _select_forward(Rs, ts, coords, pixels, f, c, tau, beta):
+    """The score+select kernel's launch on CUDA tensors,
+    :func:`_select_plain` on CPU tensors; no autograd."""
     if not Rs.is_cuda:
         return _select_plain(Rs, ts, coords, pixels, f, c, tau, beta)
     op = _kernel_operands(Rs, ts, coords, pixels, f, c)
@@ -345,6 +431,64 @@ def soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta):
     lead = op["lead"]
     return (buf["best_idx"].long().reshape(lead), buf["best_score"].reshape(lead),
             buf["best_pose"].reshape(lead + (12,)))
+
+
+def _winner_rows(x, best, row_shape):
+    """x (..., H, *row_shape) at per-problem index best (...) ->
+    (..., 1, *row_shape)."""
+    idx = best.reshape(best.shape + (1,) * (1 + len(row_shape)))
+    return torch.gather(x, best.dim(), idx.expand(best.shape + (1,) + row_shape))
+
+
+class SoftInlierScoreSelect(torch.autograd.Function):
+    """Score + first-max select, differentiable (counterpart of
+    ``_score_select``).  Forward: the score+select kernel (its plain
+    version on CPU tensors); the index is not differentiable.  Backward
+    (``_select_bwd``): recompute only the winner's score, one hypothesis x
+    all cells per problem, with :func:`soft_inlier_scores_fused`, and
+    differentiate it; the winner's pose row passes its cotangent to the
+    winner's R and t.  Every gradient of Rs and ts is zero outside the
+    winners' rows."""
+
+    @staticmethod
+    def forward(ctx, Rs, ts, coords, pixels, f, c, tau, beta):
+        best, score, pose = _select_forward(*_detached(Rs, ts, coords, pixels, f, c),
+                                            tau, beta)
+        ctx.save_for_backward(Rs, ts, coords, pixels, f, c, best)
+        ctx.consts = (tau, beta)
+        ctx.mark_non_differentiable(best)
+        return best, score, pose
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, _g_best, g_score, g_pose):
+        tau, beta = ctx.consts
+        needs = ctx.needs_input_grad[:6]
+        *inputs, best = ctx.saved_tensors
+        leaves = _leaves(inputs, needs)
+        Rs, ts, coords, pixels, f, c = leaves
+        with torch.enable_grad():
+            R_w = _winner_rows(Rs, best, (3, 3))
+            t_w = _winner_rows(ts, best, (3,))
+            score = soft_inlier_scores_fused(
+                R_w, t_w, coords, broadcast_pixels(pixels, Rs.shape[:-3]), f, c,
+                tau, beta)[..., 0]
+            pose = _pack_poses(R_w, t_w)[..., 0, :]
+            grads = _vjp((score, pose), (g_score, g_pose), leaves, needs)
+        return (*grads, None, None)
+
+
+def soft_inlier_score_select(Rs, ts, coords, pixels, f, c, tau, beta):
+    """Fused score + first-max select: (best_idx (...) int64, best_score
+    (...) float32, best_pose (..., 12) -- the winner's [R | t] row,
+    bit-equal to the input row).  CUDA tensors launch the hand-written
+    kernel (one launch for all problems); CPU tensors take
+    :func:`_select_plain`.  Where an input requires grad the call goes
+    through :class:`SoftInlierScoreSelect` (the same forward)."""
+    if _needs_grad(Rs, ts, coords, pixels, f, c):
+        f = torch.as_tensor(f, dtype=torch.float32, device=Rs.device)
+        return SoftInlierScoreSelect.apply(Rs, ts, coords, pixels, f, c, tau, beta)
+    return _select_forward(Rs, ts, coords, pixels, f, c, tau, beta)
 
 
 soft_inlier_score_select.launches = 0

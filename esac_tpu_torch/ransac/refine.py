@@ -2,8 +2,9 @@
 
 Recompute per-cell sigmoid weights, take one weighted Gauss-Newton step,
 repeat a fixed number of rounds, carrying the rotation MATRIX through the
-loop (no axis-angle round trip per round).  Weights are detached, the usual
-IRLS trick, as ``stop_weight_grad`` does in the JAX package.
+loop (no axis-angle round trip per round).  Weights are computed without
+autograd (detached), the usual IRLS trick, as ``stop_weight_grad`` does in
+the JAX package; gradients flow through the Gauss-Newton steps.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def refine_soft_inliers(
     f = torch.as_tensor(f, dtype=coords.dtype, device=coords.device)
     R = rodrigues(rvec)
     for _ in range(iters):
-        errs = reprojection_errors(R, tvec, coords, pixels, f, c)
-        w = soft_inlier_weights(errs, tau, beta).detach()
+        with torch.no_grad():
+            w = soft_inlier_weights(reprojection_errors(R, tvec, coords, pixels, f, c),
+                                    tau, beta)
         R, tvec = refine_pose_gn_R(R, tvec, coords, pixels, f, c, weights=w, iters=1)
     return so3_log(R), tvec

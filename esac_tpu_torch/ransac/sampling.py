@@ -25,3 +25,18 @@ def sample_correspondence_sets(
         0, n_cells, tuple(batch_shape) + (n_hyps, set_size),
         generator=generator, device=generator.device,
     )
+
+
+def sample_expert_indices(
+    generator: torch.Generator,
+    gating_probs: torch.Tensor,
+    n_hyps: int,
+) -> torch.Tensor:
+    """Draw one expert per hypothesis from the gating distribution
+    (counterpart of ``sample_expert_indices``): a categorical draw over
+    ``log(gating_probs + 1e-12)``, i.e. with probabilities proportional to
+    ``gating_probs + 1e-12``.  gating_probs (M,) -> (n_hyps,) int64 on the
+    generator's device; not differentiable (the draw's gradient is the
+    REINFORCE term of ``esac_train_loss``)."""
+    w = (gating_probs.detach().float() + 1e-12).to(generator.device)
+    return torch.multinomial(w, n_hyps, replacement=True, generator=generator)

@@ -62,12 +62,24 @@ def init_scene_params(preset: ScenePreset, seed: int = 0, device=None) -> dict:
     }
 
 
+def scene_forward(params: dict, imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every expert CNN over ``imgs`` (B, H, W, 3) plus its scene center,
+    and the gating CNN (zero logits for an ungated preset).  Returns coords
+    (B, M, n_cells, 3) and logits (B, M); differentiable where the modules
+    are (the training step runs it under autograd)."""
+    B, M = imgs.shape[0], len(params["expert"])
+    coords = torch.stack([net(imgs) for net in params["expert"]], dim=1)
+    coords = coords.reshape(B, M, -1, 3) + params["centers"][None, :, None, :]
+    if params["gating"] is None:
+        return coords, torch.zeros((B, M), device=imgs.device)
+    return coords, params["gating"](imgs)
+
+
 def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
     """The full pipeline for a (preset, cfg) bucket: ``fn(params, batch)``
     -> per-frame result dict (see the module docstring).  Runs under
     ``torch.inference_mode``; every tensor stays on ``device``."""
     dev = resolve_device(device)
-    M = preset.num_experts
     pixels = output_pixel_grid(preset.height, preset.width, preset.stride, device=dev)
 
     def run(params: dict, batch: dict) -> dict:
@@ -76,12 +88,7 @@ def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
         with torch.inference_mode():
             imgs = as_f32(batch["image"], dev)
             B = imgs.shape[0]
-            coords = torch.stack([net(imgs) for net in params["expert"]], dim=1)
-            coords = coords.reshape(B, M, -1, 3) + params["centers"][None, :, None, :]
-            if params["gating"] is not None:
-                logits = params["gating"](imgs)
-            else:
-                logits = torch.zeros((B, M), device=dev)
+            coords, logits = scene_forward(params, imgs)
             return esac_infer_frames(
                 frame_generators(batch["seed"], dev), logits, coords, pixels,
                 params["f"].expand(B), params["c"], cfg, idx=batch.get("idx"),

@@ -262,3 +262,161 @@ def test_score_buffers_follow_the_cell_split(B, M, H, N, resident):
     assert buf["part"].shape == (P, split[0], H) and buf["out"].shape == (P, H)
     assert buf["part"].dtype == buf["out"].dtype == torch.float32
     assert fs._select_buffers(op, torch.device("cpu"), split)["part"].shape == (P, split[0], H)
+
+
+# ------------------------------------------------------------- gradients
+#
+# Criterion of tests/test_pallas_scoring.py:79-136: two correct float32
+# backwards of a signed sum of sigmoids differ by f32 conditioning (up to
+# ~0.7% relative), so the port's gradient is held by its distance to a
+# float64 oracle of the same math -- at most 2x the JAX custom_vjp's own
+# distance + 1e-3 -- and, beside it, allclose to JAX's at rtol 2e-2,
+# atol 0.4.  The oracle is the error-map formulation in torch float64
+# (jax.experimental.enable_x64, which that JAX test imports, is gone from
+# this JAX version).
+
+
+def _grad_fixture():
+    """tests/test_pallas_scoring.py's gradient fixture: N = 300 cells,
+    H = 24 hypotheses, a random cotangent."""
+    frame = make_correspondence_frame(jax.random.key(7), noise=0.02, outlier_frac=0.3,
+                                      **FRAME_KW)
+    rv, tv = j_generate(jax.random.key(8), frame["coords"], frame["pixels"], F, C,
+                        JRansacConfig(n_hyps=24))
+    cot = np.asarray(jax.random.normal(jax.random.key(9), (24,)))
+    return (np.asarray(jax.vmap(j_rodrigues)(rv)), np.asarray(tv),
+            np.asarray(frame["coords"]), np.asarray(frame["pixels"]), cot)
+
+
+def _oracle_grads(Rs, ts, coords, pixels, cot, winner=None):
+    """float64 gradients of sum(scores * cot) -- or of the winner's score
+    times cot -- by the error-map math, with respect to (Rs, ts, coords,
+    pixels, f, c)."""
+    from esac_tpu_torch.geometry.camera import reprojection_errors
+    from esac_tpu_torch.ransac.scoring import soft_inlier_score
+
+    xs = [torch.tensor(np.asarray(x, np.float64), requires_grad=True)
+          for x in (Rs, ts, coords, pixels, float(F), C)]
+    R, t, co, px, f, c = xs
+    if winner is not None:
+        R, t = R[winner][None], t[winner][None]
+    errs = reprojection_errors(R, t, co[None], px[None], f, c)
+    torch.sum(soft_inlier_score(errs, 10.0, 0.5) * torch.tensor(np.asarray(cot, np.float64))).backward()
+    return [x.grad.numpy() for x in xs]
+
+
+def _port_grads(fn, Rs, ts, coords, pixels, f=F):
+    xs = [_t(x).requires_grad_(True) for x in (Rs, ts, coords, pixels, f, C)]
+    fn(*xs).backward()
+    return xs, [x.grad.numpy() for x in xs]
+
+
+def _hold_to_oracle(port, jax_grads, oracle):
+    for p, j, o in zip(port, jax_grads, oracle):
+        j = np.asarray(j, np.float64)
+        assert np.abs(p - o).max() <= 2.0 * np.abs(j - o).max() + 1e-3
+        np.testing.assert_allclose(p, j, rtol=2e-2, atol=0.4)
+
+
+def test_scores_function_backward_matches_jax_custom_vjp():
+    """SoftInlierScores' backward (the chunked plain recompute) against the
+    JAX package's custom_vjp (_scores_bwd) for Rs, ts and coords, and
+    against the float64 oracle for pixels, f and c as well."""
+    Rs, ts, coords, pixels, cot = _grad_fixture()
+
+    def j_loss(R, t, co):
+        return jax.numpy.sum(j_scores(R, t, co, pixels, F, C, 10.0, 0.5, interpret=True)
+                             * cot)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(Rs, ts, coords)
+    xs, got = _port_grads(lambda *a: torch.sum(
+        fs.soft_inlier_scores_kernel(*a, 10.0, 0.5, chunk=7) * _t(cot)), Rs, ts, coords,
+        pixels)
+    oracle = _oracle_grads(Rs, ts, coords, pixels, cot)
+    _hold_to_oracle(got[:3], want, oracle[:3])
+    for p, o in zip(got[3:], oracle[3:]):
+        np.testing.assert_allclose(p, o, rtol=2e-2, atol=0.4 * max(1.0, np.abs(o).max()))
+    assert all(np.isfinite(g).all() and np.abs(g).max() > 0 for g in got)
+
+
+def test_scores_function_chunking_changes_no_hypothesis_gradient():
+    """The backward recompute's hypothesis chunk bounds its memory and
+    changes no arithmetic of a hypothesis' own gradient: Rs and ts
+    gradients are bit-equal across chunks; the shared inputs' gradients are
+    sums over the chunks, equal to float32 rounding."""
+    Rs, ts, coords, pixels, cot = _grad_fixture()
+    runs = [_port_grads(lambda *a, k=k: torch.sum(
+        fs.soft_inlier_scores_kernel(*a, 10.0, 0.5, chunk=k) * _t(cot)), Rs, ts, coords,
+        pixels)[1] for k in (1, 5, 24, 64)]
+    for other in runs[1:]:
+        np.testing.assert_array_equal(other[0], runs[0][0])
+        np.testing.assert_array_equal(other[1], runs[0][1])
+        for a, b in zip(other[2:], runs[0][2:]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
+
+
+def test_select_function_backward_is_winner_only_and_matches_jax():
+    """SoftInlierScoreSelect's backward recomputes the winner's score alone
+    (_select_bwd): Rs and ts gradients vanish outside the winner's row,
+    and the gradients match the JAX custom_vjp of
+    soft_inlier_score_select(use_pallas=True, interpret=True)."""
+    Rs, ts, coords, pixels, cot = _grad_fixture()
+
+    def j_loss(R, t, co):
+        _, s = j_select(R, t, co, pixels, F, C, 10.0, 0.5, use_pallas=True, interpret=True)
+        return s * cot[0]
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(Rs, ts, coords)
+    winner = []
+
+    def port_loss(*a):
+        i, s, _ = fs.soft_inlier_score_select(*a, 10.0, 0.5)
+        winner.append(int(i))
+        return s * float(cot[0])
+
+    _, got = _port_grads(port_loss, Rs, ts, coords, pixels)
+    w = winner[0]
+    assert w == int(j_select(Rs, ts, coords, pixels, F, C, 10.0, 0.5, use_pallas=True,
+                             interpret=True)[0])
+    rows = np.abs(got[0]).sum((1, 2)) + np.abs(got[1]).sum(1)
+    assert rows[w] > 0 and np.count_nonzero(rows) == 1
+    _hold_to_oracle(got[:3], want,
+                    _oracle_grads(Rs, ts, coords, pixels, cot[:1], winner=w)[:3])
+
+
+def test_select_function_pose_row_passes_its_gradient_to_the_winner():
+    """The winner's pose row is the input row, so its cotangent lands on
+    the winner's R and t unchanged (the score's part is zero here)."""
+    Rs, ts, coords, pixels, _ = _grad_fixture()
+    cot = np.arange(12, dtype=np.float32)
+    xs = [_t(x).requires_grad_(True) for x in (Rs, ts)]
+    i, _, pose = fs.soft_inlier_score_select(*xs, _t(coords), _t(pixels), torch.tensor(F),
+                                             _t(C), 10.0, 0.5)
+    torch.sum(pose * _t(cot)).backward()
+    want_R, want_t = np.zeros_like(Rs), np.zeros_like(ts)
+    want_R[int(i)], want_t[int(i)] = cot[:9].reshape(3, 3), cot[9:]
+    np.testing.assert_array_equal(xs[0].grad.numpy(), want_R)
+    np.testing.assert_array_equal(xs[1].grad.numpy(), want_t)
+
+
+def test_wrappers_route_through_functions_only_under_grad():
+    """An input that requires grad sends each wrapper through its Function
+    (the same forward values); without one, or under no_grad, the call is
+    the plain forward with no graph."""
+    Rs, ts, coords, pixels, _ = _grad_fixture()
+    args = [_t(x) for x in (Rs, ts, coords, pixels)] + [torch.tensor(F), _t(C), 10.0, 0.5]
+    plain_scores = fs.soft_inlier_scores_kernel(*args)
+    plain_sel = fs.soft_inlier_score_select(*args)
+    assert plain_scores.grad_fn is None and plain_sel[1].grad_fn is None
+    for pos in range(6):
+        call = list(args)
+        call[pos] = call[pos].clone().requires_grad_(True)
+        s = fs.soft_inlier_scores_kernel(*call)
+        i, b, p = fs.soft_inlier_score_select(*call)
+        assert type(s.grad_fn).__name__ == "SoftInlierScoresBackward"
+        assert type(b.grad_fn).__name__ == "SoftInlierScoreSelectBackward"
+        assert not i.requires_grad
+        assert torch.equal(s, plain_scores) and torch.equal(i, plain_sel[0])
+        assert torch.equal(b, plain_sel[1]) and torch.equal(p, plain_sel[2])
+        with torch.no_grad():
+            assert fs.soft_inlier_scores_kernel(*call).grad_fn is None
