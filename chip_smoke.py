@@ -12,7 +12,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  card, at the serving shapes (P = 4 frames x 7 experts,
                  H = 256, N = 4800), at the 16-frame and 1-frame serving
                  buckets (P = 112, P = 7), at the training shape of phase 6
-                 (P = 14) and at ragged shapes (H = 40, N = 300): scores
+                 (P = 14), at ragged shapes (H = 40, N = 300), at the routed
+                 K = 2 shape (P = 4 frames x 2 maps, H = 896) and at the
+                 prior-slot shape (P = 28, H = 4 poses): scores
                  allclose (rtol 1e-5, atol 1e-3: the same float32 formula
                  summed in another order), winner index equal where the top
                  two plain scores are further apart than that tolerance,
@@ -28,14 +30,36 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  coordinates back-projected at random depths, 2 cm noise,
                  30% outliers) through dsac_infer and esac_infer_frames
                  (7 maps, one true) under "fused_select": the refined pose is
-                 within 5 cm / 5 deg and the true map wins;
+                 within 5 cm / 5 deg and the true map wins; then
+                 esac_infer_frames_prior with 4 hypotheses a map under
+                 "fused_select" and "pallas": a valid prior at the GT pose
+                 wins (prior_hit, its slot, not the invalid copy in another
+                 slot, the pose within 5 cm / 5 deg) and an all-invalid
+                 slate leaves the sampled stream the winner;
 5. serving    -- the full-width 7-expert preset at 640x480 (ref widths,
                  bf16 CNNs, weights from the port's own init at --seed)
                  answers requests of 1, 3, 5 and 16 frames, planned and padded
                  into the (1, 4, 16, 64) buckets, under "fused_select" and
                  "pallas" on the same seeds, and under the plain "errmap"
                  path; "pallas" and "fused_select" give bit-equal winning
-                 scores and experts, "errmap" agrees within the tolerance;
+                 scores and experts, "errmap" agrees within the tolerance.
+                 Across buckets: one set of synthetic coordinates and seeds
+                 through esac_infer_frames at 2, 4 and 16 lanes must be bit-
+                 identical (the RANSAC stage); every frame of the requests
+                 served alone is compared with its row in the 4- and 16-lane
+                 dispatches end to end, and the CNN stage alone (max |diff|
+                 reported).  Routed (make_routed_scene_bucket_fn) on the same
+                 dispatches: K = 7 bit-equal to make_scene_bucket_fn; K = 2
+                 "pallas" and "fused_select" bit-equal winners, "errmap"
+                 within the tolerance on one dispatch, each frame alone
+                 bit-equal to its row in a larger bucket on every output but
+                 gating_probs (reported apart); an overflow dispatch
+                 (capacity 2, 4 copies of one image): frames 2-3 evaluate the
+                 sentinel 7 in every slot with finite poses and -inf scores,
+                 frames 0-1 bit-equal to a 2-frame dispatch; a prior batch (4
+                 slots, all invalid) through both bucket functions bit-equal
+                 to the plain dispatch; stage times of a routed K = 2
+                 dispatch at 4 and 16 lanes;
 6. training   -- (a) both kernels' autograd Functions at P = 2 frames x 7
                  experts, H = 256, N = 4800: the forwards against the plain
                  versions (the tolerance of phase 3) and against a second
@@ -62,8 +86,12 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
 call must launch the select kernel exactly once and the scoring kernel
-never, a "pallas" call the reverse, an "errmap" call neither; a training
-step counts as one call (its backward launches nothing).
+never, a "pallas" call the reverse, an "errmap" call neither -- routed
+calls too; a prior-slot "pallas" call launches the scoring kernel twice
+(sampled stream, then priors), a prior-slot "fused_select" call the select
+kernel once (the priors take the plain error-map math, as in the
+reference); a training step counts as one call (its backward launches
+nothing).
 
 Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"kernels": [...]} and the nvidia-smi name/power-limit line; the last
@@ -108,6 +136,10 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "frames1": (1, 7, 256, 480, 640),
     "train": (2, 7, 256, 480, 640),
     "ragged": (3, 1, 40, 120, 160),
+    # Routed K = 2 of M = 7: 4 frames x 2 maps x 7 * 256 // 2 hypotheses.
+    "routed_k2": (4, 2, 896, 480, 640),
+    # A prior-slot batch: 4 frames x 7 maps x 4 prior poses (launch-bound).
+    "prior": (4, 7, 4, 480, 640),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
 # Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
@@ -246,6 +278,16 @@ LAUNCHES_PER_CALL = {
     "pallas": {"soft_inlier_scores": 1, "soft_inlier_select": 0},
     "errmap": {"soft_inlier_scores": 0, "soft_inlier_select": 0},
 }
+# A prior-slot dispatch scores its priors through the training path's
+# scoring entry, as the reference does: one more scoring launch under
+# "pallas", the plain error-map math under "fused_select".
+PRIOR_LAUNCHES = {
+    "fused_select": {"soft_inlier_scores": 0, "soft_inlier_select": 1},
+    "pallas": {"soft_inlier_scores": 2, "soft_inlier_select": 0},
+    "errmap": {"soft_inlier_scores": 0, "soft_inlier_select": 0},
+}
+ROUTED_K = 2  # the routed serving checks' top-k (and K = M = 7)
+PRIOR_SLOTS = 4  # esac_tpu/serve/session.py SessionPolicy.prior_slots
 
 
 def _wrappers():
@@ -255,16 +297,17 @@ def _wrappers():
             "soft_inlier_select": fs.soft_inlier_score_select}
 
 
-def counted(dev, impl, what, fn):
+def counted(dev, impl, what, fn, prior=False):
     """Run ``fn()`` with every launch counter set to 0 just before and read
-    just after; fail unless the counts are exactly ``impl``'s per call.
-    Returns ``(fn's result, counts)``."""
+    just after; fail unless the counts are exactly ``impl``'s per call (a
+    prior-slot call's with ``prior``).  Returns ``(fn's result, counts)``."""
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
     out = fn()
     got = {name: w.launches for name, w in wrappers.items()}
-    want = LAUNCHES_PER_CALL[impl] if dev.type == "cuda" else dict.fromkeys(KERNELS, 0)
+    per_call = PRIOR_LAUNCHES if prior else LAUNCHES_PER_CALL
+    want = per_call[impl] if dev.type == "cuda" else dict.fromkeys(KERNELS, 0)
     if got != want:
         raise AssertionError(f"{what} under {impl!r}: kernel launches {got}, expected {want}")
     return out, got
@@ -408,7 +451,7 @@ def phase_recovery(dev, seed):
     from esac_tpu_torch.geometry.camera import pose_errors
     from esac_tpu_torch.geometry.rotations import rodrigues
     from esac_tpu_torch.ransac.config import RansacConfig
-    from esac_tpu_torch.ransac.esac import esac_infer_frames
+    from esac_tpu_torch.ransac.esac import esac_infer_frames, esac_infer_frames_prior
     from esac_tpu_torch.ransac.kernel import dsac_infer, frame_generators
 
     rng = np.random.default_rng(seed + 1)
@@ -443,103 +486,441 @@ def phase_recovery(dev, seed):
     for b in range(B):
         check(out["rvec"][b], out["tvec"][b], frames[b], f"esac_infer_frames frame {b}")
 
+    # The prior slot wins: 4 hypotheses a map, and frame 0's slot 2 holds
+    # its GT pose (slot 1 too, but invalid; slot 0 a valid decoy 20 deg off);
+    # frame 1's slots are all invalid, so its sampled stream must win.
+    prv = np.zeros((2, PRIOR_SLOTS, 3), np.float32)
+    ptv = np.zeros((2, PRIOR_SLOTS, 3), np.float32)
+    valid = np.zeros((2, PRIOR_SLOTS), bool)
+    prv[0, 1] = prv[0, 2] = frames[0][2]
+    ptv[0, 1] = ptv[0, 2] = frames[0][3]
+    prv[0, 0], ptv[0, 0] = frames[0][2] + np.float32([0.35, 0, 0]), frames[0][3]
+    valid[0, [0, 2]] = True
+    for impl in ("fused_select", "pallas"):
+        cfg4 = RansacConfig(n_hyps=4, scoring_impl=impl)
+        out, n = counted(dev, impl, "esac_infer_frames_prior", lambda: esac_infer_frames_prior(
+            frame_generators([seed, seed + 1], dev), np.zeros((2, M), np.float32),
+            np.array(coords[:2]), frames[0][1], np.full(2, f, np.float32), c, prv, ptv, valid,
+            cfg4, device=dev), prior=True)
+        hits, slots = out["prior_hit"].tolist(), out["prior_slot"].tolist()
+        log(f"[recovery] esac_infer_frames_prior under {impl} (n_hyps 4): prior_hit {hits}, "
+            f"prior_slot {slots}, experts {out['expert'].tolist()}, launches {n}")
+        if hits != [True, False] or slots != [2, PRIOR_SLOTS] or int(out["expert"][0]) != true_m:
+            raise AssertionError(f"prior slot under {impl}: hit {hits}, slot {slots}")
+        check(out["rvec"][0], out["tvec"][0], frames[0], f"prior slot under {impl}")
+
+
+def _serving_preset():
+    from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
+    from esac_tpu_torch.registry.manifest import ScenePreset
+
+    height, width, arch = SERVING_SIZE["height"], SERVING_SIZE["width"], SERVING_SIZE["arch"]
+    return ScenePreset(height=height, width=width, num_experts=7,
+                       gating_channels=GATING_PRESETS[arch]["channels"],
+                       compute_dtype="bfloat16", **EXPERT_PRESETS[arch])
+
+
+def _plan(requests, buckets, seed0):
+    """Every dispatch of ``requests`` as the serving front end plans it:
+    (request index, first frame, valid frames, bucket, padded batch), each
+    frame with its own seed (frame i of the whole run gets seed0 + i)."""
+    from esac_tpu_torch.serve.batching import pad_batch, pick_bucket, plan_dispatches
+
+    plan, next_seed = [], seed0
+    for r, images in enumerate(requests):
+        start = 0
+        for n in plan_dispatches(len(images), buckets):
+            bucket = pick_bucket(n, buckets)
+            batch, n_valid = pad_batch({"image": images[start:start + n],
+                                        "seed": np.arange(next_seed, next_seed + n)}, bucket)
+            plan.append((r, start, n_valid, bucket, batch))
+            start, next_seed = start + n, next_seed + n
+    return plan
+
+
+def _dispatch_all(dev, fns, params, plan, what, prior=False):
+    """Every planned dispatch through every function of ``fns`` (launches
+    counted per call); returns per dispatch {impl: out}, {impl: ms} and the
+    summed launches by impl."""
+    launches = {impl: dict.fromkeys(KERNELS, 0) for impl in fns}
+    outs, times = [], []
+    for r, start, n_valid, bucket, batch in plan:
+        got, ms = {}, {}
+        for impl, fn in fns.items():
+            sync(dev)
+            t0 = time.perf_counter()
+            got[impl], n = counted(dev, impl, f"{what}: a {n_valid}-frame dispatch",
+                                   lambda: fn(params, batch), prior=prior)
+            sync(dev)
+            ms[impl] = (time.perf_counter() - t0) * 1e3
+            for name, k in n.items():
+                launches[impl][name] += k
+        outs.append(got)
+        times.append(ms)
+    return outs, times, launches
+
+
+def _check_dispatch(outs, lanes, what):
+    """Shapes and finiteness of one dispatch's outputs; "pallas" and
+    "fused_select" (one partial pass, one summation order) give bit-equal
+    winning scores and experts, "errmap" agrees within SCORE_TOL."""
+    import torch
+
+    sel = outs["fused_select"]
+    for key, shape in (("rvec", (lanes, 3)), ("tvec", (lanes, 3)), ("expert", (lanes,)),
+                       ("score", (lanes,))):
+        if tuple(sel[key].shape) != shape:
+            raise AssertionError(f"{what}: {key} shape {tuple(sel[key].shape)} != {shape}")
+    for out in outs.values():
+        for key in ("rvec", "tvec"):
+            if not _finite(out[key]):
+                raise AssertionError(f"{what}: non-finite {key}")
+    pose_bit_equal = None
+    if "pallas" in outs:
+        pal = outs["pallas"]
+        if not torch.equal(sel["score"], pal["scores"].flatten(1).amax(1)):
+            raise AssertionError(f"{what}: fused_select and pallas winning scores differ")
+        if not torch.equal(sel["expert"], pal["expert"]):
+            raise AssertionError(f"{what}: fused_select and pallas experts differ")
+        if not (torch.allclose(sel["rvec"], pal["rvec"])
+                and torch.allclose(sel["tvec"], pal["tvec"])):
+            raise AssertionError(f"{what}: fused_select and pallas refined poses differ")
+        pose_bit_equal = bool(torch.equal(sel["rvec"], pal["rvec"])
+                              and torch.equal(sel["tvec"], pal["tvec"]))
+    if "errmap" in outs:
+        ref = outs["errmap"]["scores"].flatten(1).amax(1)
+        live = torch.isfinite(ref)
+        if not (torch.equal(live, torch.isfinite(sel["score"]))
+                and torch.allclose(sel["score"][live], ref[live], **SCORE_TOL)):
+            raise AssertionError(f"{what}: fused_select and errmap winning scores differ")
+    return pose_bit_equal
+
+
+def _row(out, b):
+    return {k: v[b] for k, v in out.items()}
+
+
+def _diff(a, b) -> float:
+    """max |a - b| over finite entries, 0 where both are the same infinity;
+    inf where a non-finite entry differs."""
+    import torch
+
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if bool(same.all()):
+        return 0.0
+    return float((a - b)[~same].abs().max())
+
+
+def _cross_bucket(fn, params, plan, outs, keys, what):
+    """Each real frame of every dispatch of more than 2 lanes served again
+    alone (bucket 1: 2 lanes) and compared with its row in the larger
+    dispatch: max |difference| per key (0 where bit-equal) by lanes."""
+    from esac_tpu_torch.serve.batching import pad_batch
+
+    worst = {}
+    for (r, start, n_valid, bucket, batch), out in zip(plan, outs):
+        lanes = len(batch["image"])
+        if lanes <= 2:
+            continue
+        for b in range(n_valid):
+            one, _ = pad_batch({k: v[b:b + 1] for k, v in batch.items()}, 1)
+            alone = _row(fn(params, one), 0)
+            for key in keys:
+                d = _diff(alone[key], out[key][b])
+                worst.setdefault(lanes, {}).setdefault(key, 0.0)
+                worst[lanes][key] = max(worst[lanes][key], d)
+    log(f"[serving] {what}: each frame alone (2 lanes) against its row at "
+        + "; ".join(f"{lanes} lanes max |diff| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in d.items()) for lanes, d in sorted(worst.items())))
+    return worst
+
+
+def _cnn_cross_bucket(dev, params, images):
+    """The CNN stage alone: scene_forward over ``images`` at once against
+    each image alone (padded to 2): max |diff| of coordinates and logits."""
+    import torch
+
+    from esac_tpu_torch.registry.serving import scene_forward
+
+    with torch.inference_mode():
+        imgs = torch.as_tensor(images, device=dev)
+        coords, logits = scene_forward(params, imgs)
+        worst = {"coords": 0.0, "logits": 0.0}
+        for b in range(len(imgs)):
+            c1, l1 = scene_forward(params, imgs[[b, b]])
+            worst["coords"] = max(worst["coords"], _diff(c1[0], coords[b]))
+            worst["logits"] = max(worst["logits"], _diff(l1[0], logits[b]))
+    return worst
+
+
+def _ransac_cross_bucket(dev, seed):
+    """The RANSAC stage alone, across buckets: one set of synthetic
+    coordinates (64 frames x 7 maps at the serving size) and per-frame
+    seeds through esac_infer_frames at 2, 4, 16 and 64 lanes must give
+    every frame's outputs bit for bit, under every scoring_impl.  On a
+    difference it names the first stage that differs (hypotheses,
+    per-map winners, else the refine)."""
+    import torch
+
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import _per_expert_winners, esac_infer_frames
+    from esac_tpu_torch.ransac.kernel import frame_generators
+
+    rng = np.random.default_rng(seed + 4)
+    height, width = SERVING_SIZE["height"], SERVING_SIZE["width"]
+    f, c = 525.0 * width / 640.0, np.array([width / 2.0, height / 2.0], np.float32)
+    B, M, lanes_all = 64, 7, (2, 4, 16, 64)
+    coords = []
+    for b in range(B):
+        X, pixels, _, _ = synth_frame(rng, f, c, height, width)
+        maps = [X[rng.permutation(len(X))] for _ in range(M)]
+        maps[b % M] = X
+        coords.append(maps)
+    coords = torch.as_tensor(np.array(coords), device=dev)
+    pixels = torch.as_tensor(pixels, device=dev)
+    cT = torch.as_tensor(c, device=dev)
+    seeds = np.arange(B) + 100 * seed
+    fB = torch.full((B,), f, device=dev)
+
+    def run(fn, lanes):
+        rows = [fn(s, s + lanes) for s in range(0, B, lanes)]
+        if isinstance(rows[0], dict):
+            return {k: torch.cat([o[k] for o in rows]) for k in rows[0]}
+        return [torch.cat([o[i] for o in rows]) for i in range(4)]
+
+    for impl in ("fused_select", "pallas", "errmap"):
+        cfg = RansacConfig(scoring_impl=impl)
+        full = {lanes: run(lambda a, b: esac_infer_frames(
+            frame_generators(seeds[a:b], dev), torch.zeros((b - a, M), device=dev),
+            coords[a:b], pixels, fB[a:b], cT, cfg, device=dev), lanes) for lanes in lanes_all}
+        for lanes in lanes_all[1:]:
+            bad = [k for k in full[2] if not torch.equal(full[2][k], full[lanes][k])]
+            if not bad:
+                continue
+            stages = {n: run(lambda a, b: _per_expert_winners(
+                frame_generators(seeds[a:b], dev), coords[a:b], pixels, fB[a:b], cT,
+                cfg)[:4], n) for n in (2, lanes)}
+            first = next((name for name, i in (("hypotheses (P3P + polish)", 0),
+                                                ("per-map winners (scoring)", 3))
+                          if not torch.equal(stages[2][i], stages[lanes][i])), "refine")
+            raise AssertionError(
+                f"RANSAC stage under {impl!r}: 2 lanes vs {lanes} lanes differ on {bad} "
+                f"(max |diff| {[_diff(full[2][k], full[lanes][k]) for k in bad]}); first "
+                f"stage that differs: {first}")
+    log(f"[serving] RANSAC stage across buckets: {B} frames x {M} maps through "
+        f"esac_infer_frames at {', '.join(map(str, lanes_all))} lanes bit-identical on every "
+        "output, under fused_select, pallas and errmap")
+    return True
+
 
 def phase_serving(dev, seed):
     import torch
 
-    from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
     from esac_tpu_torch.ransac.config import RansacConfig
-    from esac_tpu_torch.registry.manifest import ScenePreset
-    from esac_tpu_torch.registry.serving import init_scene_params, make_scene_bucket_fn
-    from esac_tpu_torch.serve.batching import pad_batch, pick_bucket, plan_dispatches
+    from esac_tpu_torch.registry.serving import (
+        init_scene_params,
+        make_routed_scene_bucket_fn,
+        make_scene_bucket_fn,
+    )
+    from esac_tpu_torch.ransac.esac import routed_serve_capacity
 
-    height, width, arch = SERVING_SIZE["height"], SERVING_SIZE["width"], SERVING_SIZE["arch"]
-    preset = ScenePreset(height=height, width=width, num_experts=7,
-                         gating_channels=GATING_PRESETS[arch]["channels"],
-                         compute_dtype="bfloat16", **EXPERT_PRESETS[arch])
+    preset = _serving_preset()
+    M, height, width = preset.num_experts, preset.height, preset.width
     params = init_scene_params(preset, seed=seed, device=dev)
     buckets = RansacConfig().frame_buckets
-    fns = {impl: make_scene_bucket_fn(preset, RansacConfig(scoring_impl=impl), device=dev)
-           for impl in ("fused_select", "pallas", "errmap")}
+    impls = ("fused_select", "pallas", "errmap")
+    dense = {impl: make_scene_bucket_fn(preset, RansacConfig(scoring_impl=impl), device=dev)
+             for impl in impls}
+    routed = {k: {impl: make_routed_scene_bucket_fn(preset, RansacConfig(scoring_impl=impl),
+                                                    k, device=dev)
+                  for impl in (impls if k == ROUTED_K else impls[:2])}
+              for k in (M, ROUTED_K)}
     rng = np.random.default_rng(seed + 2)
     requests = [rng.uniform(0, 1, (n, height, width, 3)).astype(np.float32)
                 for n in (1, 3, 5, 16)]
+    plan = _plan(requests, buckets, 1000 * seed)
 
     # Warm-up of every bucket shape (cuDNN algorithm choice, allocator) off
     # the measured dispatches; the kernels' counts are zeroed after it.
     for lanes in (1, 4, 16):
-        batch, _ = pad_batch({"image": requests[0][:1], "seed": np.zeros(1, np.int64)}, lanes)
-        for fn in fns.values():
+        batch, _ = pad_batch_warm(requests[0][:1], lanes)
+        for fn in [*dense.values(), *routed[M].values(), *routed[ROUTED_K].values()]:
             fn(params, batch)
     sync(dev)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    launches = {impl: dict.fromkeys(KERNELS, 0) for impl in fns}
-    dispatches, next_seed = [], 1000 * seed
-    for images in requests:
-        start = 0
-        for n in plan_dispatches(len(images), buckets):
-            bucket = pick_bucket(n, buckets)
-            batch, n_valid = pad_batch(
-                {"image": images[start:start + n],
-                 "seed": np.arange(next_seed, next_seed + n)}, bucket)
-            start, next_seed = start + n, next_seed + n
-            outs, times = {}, {}
-            for impl, fn in fns.items():
-                sync(dev)
-                t0 = time.perf_counter()
-                outs[impl], n = counted(dev, impl, f"a {n_valid}-frame dispatch",
-                                        lambda: fn(params, batch))
-                sync(dev)
-                times[impl] = (time.perf_counter() - t0) * 1e3
-                for name, k in n.items():
-                    launches[impl][name] += k
-            sel, pal, ref = outs["fused_select"], outs["pallas"], outs["errmap"]
-            lanes = len(batch["image"])
-            for key, shape in (("rvec", (lanes, 3)), ("tvec", (lanes, 3)),
-                               ("expert", (lanes,)), ("score", (lanes,))):
-                if tuple(sel[key].shape) != shape:
-                    raise AssertionError(f"{key} shape {tuple(sel[key].shape)} != {shape}")
-            for out in outs.values():
-                for key in ("rvec", "tvec", "inlier_frac"):
-                    if not bool(torch.isfinite(out[key]).all()):
-                        raise AssertionError(f"non-finite {key}")
-            # The two kernels share one partial pass and one summation order,
-            # so "pallas" and "fused_select" pick bit-equal winners.
-            if not torch.equal(sel["score"], pal["scores"].amax(dim=(1, 2))):
-                raise AssertionError("fused_select and pallas winning scores differ")
-            if not torch.equal(sel["expert"], pal["expert"]):
-                raise AssertionError("fused_select and pallas experts differ")
-            if not (torch.allclose(sel["rvec"], pal["rvec"])
-                    and torch.allclose(sel["tvec"], pal["tvec"])):
-                raise AssertionError("fused_select and pallas refined poses differ")
-            pose_bit_equal = bool(torch.equal(sel["rvec"], pal["rvec"])
-                                  and torch.equal(sel["tvec"], pal["tvec"]))
-            if not torch.allclose(sel["score"], ref["scores"].amax(dim=(1, 2)), **SCORE_TOL):
-                raise AssertionError("fused_select and errmap winning scores differ")
-            dispatches.append(dict(frames=n_valid, lanes=lanes, ms=times,
-                                   score=sel["score"][:n_valid].tolist(),
-                                   expert=sel["expert"][:n_valid].tolist(),
-                                   pallas_pose_bit_equal=pose_bit_equal))
-            log(f"[serving] request of {len(images)}: dispatch {n_valid} frames in bucket "
-                f"{bucket} ({lanes} lanes): " + ", ".join(
-                    f"{k} {v:.1f} ms" for k, v in times.items())
-                + f"; winners {sel['expert'][:n_valid].tolist()}; pallas pose "
-                + ("bit-equal" if pose_bit_equal else "allclose, not bit-equal"))
+    outs, times, launches = _dispatch_all(dev, dense, params, plan, "dense")
+    dispatches = []
+    for (r, start, n_valid, bucket, batch), got, ms in zip(plan, outs, times):
+        lanes = len(batch["image"])
+        pose_bit_equal = _check_dispatch(got, lanes, f"dense {n_valid}-frame dispatch")
+        sel = got["fused_select"]
+        dispatches.append(dict(frames=n_valid, lanes=lanes, ms=ms,
+                               score=sel["score"][:n_valid].tolist(),
+                               expert=sel["expert"][:n_valid].tolist(),
+                               pallas_pose_bit_equal=pose_bit_equal))
+        log(f"[serving] request of {len(requests[r])}: dispatch {n_valid} frames in bucket "
+            f"{bucket} ({lanes} lanes): " + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+            + f"; winners {sel['expert'][:n_valid].tolist()}; pallas pose "
+            + ("bit-equal" if pose_bit_equal else "allclose, not bit-equal"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     log(f"[serving] launches by scoring_impl over {len(dispatches)} dispatches {launches}; "
         f"peak memory {peak / 2**30:.2f} GiB")
+
+    # Across buckets: the RANSAC stage alone must be bit-identical; end to
+    # end, the CNN stage runs at each bucket's width.
+    cross = {"ransac_stage_bit_identical": _ransac_cross_bucket(dev, seed)}
+    keys = ("rvec", "tvec", "expert", "score", "inlier_frac", "gating_probs")
+    cross["dense"] = _cross_bucket(dense["fused_select"], params, plan,
+                                   [o["fused_select"] for o in outs], keys,
+                                   "dense fused_select end to end")
+    cross["dense_cnn"] = _cnn_cross_bucket(dev, params, requests[-1])
+    log(f"[serving] dense CNN stage: 16 images at once against each alone (2 lanes): "
+        f"max |diff| coords {cross['dense_cnn']['coords']:.3g}, logits "
+        f"{cross['dense_cnn']['logits']:.3g}")
+
+    routed_res = _routed_checks(dev, params, preset, plan, outs, routed, requests)
+    routed_res["cross_bucket"] = _cross_bucket(
+        routed[ROUTED_K]["fused_select"], params, plan,
+        [o["fused_select"] for o in routed_res.pop("outs")], keys + ("experts_evaluated",),
+        f"routed K={ROUTED_K} fused_select end to end")
+    bad = {lanes: {k: v for k, v in d.items() if v != 0 and k != "gating_probs"}
+           for lanes, d in routed_res["cross_bucket"].items()}
+    if any(bad.values()):
+        raise AssertionError(f"routed K={ROUTED_K}: a frame alone differs from its row in a "
+                             f"larger bucket: {bad}")
+    routed_res["prior"] = _prior_checks(dev, params, requests, routed, dense)
+    routed_res["capacity"] = routed_serve_capacity(RansacConfig(), ROUTED_K, M)
+
     stages, busy = {}, {}
     for lanes in (4, 16):
         stages[lanes] = _stage_breakdown(dev, params, preset, requests[-1][:lanes])
+        stages[f"routed_k{ROUTED_K}_{lanes}"] = _routed_stage_breakdown(
+            dev, params, preset, requests[-1][:lanes], ROUTED_K)
         if dev.type == "cuda":
             batch = {"image": requests[-1][:lanes], "seed": np.arange(lanes)}
             busy[lanes] = _device_busy(
-                dev, lambda: fns["fused_select"](params, batch),
+                dev, lambda: dense["fused_select"](params, batch),
                 f"[serving] profiled {lanes}-lane fused_select dispatch")
     return dict(dispatches=dispatches, launches=launches, peak_bytes=peak,
-                stages=stages, device_busy=busy)
+                stages=stages, device_busy=busy, cross_bucket=cross, routed=routed_res)
+
+
+def pad_batch_warm(images, lanes):
+    from esac_tpu_torch.serve.batching import pad_batch
+
+    return pad_batch({"image": images, "seed": np.zeros(len(images), np.int64)}, lanes)
+
+
+def _bit_equal(a: dict, b: dict, keys, what):
+    import torch
+
+    for key in keys:
+        if not torch.equal(a[key], b[key]):
+            raise AssertionError(f"{what}: {key} differs (max |diff| {_diff(a[key], b[key])})")
+
+
+def _routed_checks(dev, params, preset, plan, dense_outs, routed, requests):
+    """Routed serving on the planned dispatches: K = M bit-equal to the
+    dense bucket function on the same seeds; K = ROUTED_K "pallas" and
+    "fused_select" bit-equal winners, "errmap" within tolerance on the
+    first dispatch; the overflow dispatch's accounting."""
+    import torch
+
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.registry.serving import make_routed_scene_bucket_fn
+
+    M = preset.num_experts
+    res = {}
+    outs7, _, launches7 = _dispatch_all(dev, routed[M], params, plan, f"routed K={M}")
+    for (r, start, n_valid, bucket, batch), got, want in zip(plan, outs7, dense_outs):
+        lanes = len(batch["image"])
+        for impl in ("fused_select", "pallas"):
+            _bit_equal(got[impl], want[impl], want[impl].keys(),
+                       f"routed K={M} vs dense, {impl}, {lanes} lanes")
+            if not torch.equal(got[impl]["experts_evaluated"].cpu(),
+                               torch.arange(M).expand(lanes, M)):
+                raise AssertionError(f"routed K={M}: experts_evaluated is not 0..{M - 1}")
+    log(f"[serving] routed K={M}: {len(plan)} dispatches bit-equal to make_scene_bucket_fn "
+        f"on every output, fused_select and pallas; launches {launches7}")
+
+    fns = routed[ROUTED_K]
+    two = {k: v for k, v in fns.items() if k != "errmap"}
+    outs2, times2, launches2 = _dispatch_all(dev, two, params, plan, f"routed K={ROUTED_K}")
+    outs2[0]["errmap"], _ = counted(dev, "errmap", f"routed K={ROUTED_K} errmap",
+                                    lambda: fns["errmap"](params, plan[0][4]))
+    res["dispatches"] = []
+    for (r, start, n_valid, bucket, batch), got, ms in zip(plan, outs2, times2):
+        lanes = len(batch["image"])
+        _check_dispatch(got, lanes, f"routed K={ROUTED_K} {n_valid}-frame dispatch")
+        ev = got["fused_select"]["experts_evaluated"]
+        if tuple(ev.shape) != (lanes, ROUTED_K):
+            raise AssertionError(f"routed experts_evaluated shape {tuple(ev.shape)}")
+        res["dispatches"].append(dict(frames=n_valid, lanes=lanes, ms=ms,
+                                      experts_evaluated=ev[:n_valid].tolist(),
+                                      expert=got["fused_select"]["expert"][:n_valid].tolist()))
+        log(f"[serving] routed K={ROUTED_K}: dispatch {n_valid} frames ({lanes} lanes): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+            + f"; evaluated {ev[:n_valid].tolist()}")
+    res["launches"] = {"k7": launches7, f"k{ROUTED_K}": launches2}
+    res["outs"] = outs2
+
+    # Overflow: capacity 2, four copies of one image (identical gating, so
+    # every frame contends for the same experts): frames 2-3 drop everything.
+    over = {impl: make_routed_scene_bucket_fn(
+        preset, RansacConfig(scoring_impl=impl, serve_capacity=2), ROUTED_K, device=dev)
+        for impl in ("fused_select", "pallas")}
+    img = np.repeat(requests[1][:1], 4, axis=0)
+    four = {"image": img, "seed": np.arange(4) + 77}
+    twin = {"image": img[:2], "seed": np.arange(2) + 77}
+    for impl, fn in over.items():
+        got, _ = counted(dev, impl, "overflow dispatch", lambda: fn(params, four))
+        pair, _ = counted(dev, impl, "2-frame dispatch", lambda: fn(params, twin))
+        if not bool((got["experts_evaluated"][2:] == M).all()):
+            raise AssertionError(f"overflow: frames 2-3 evaluated {got['experts_evaluated']}")
+        if not (_finite(got["rvec"]) and _finite(got["tvec"])):
+            raise AssertionError("overflow: non-finite poses")
+        if impl == "pallas" and not bool(torch.isneginf(got["scores"][2:]).all()):
+            raise AssertionError("overflow: a dropped frame's scores are not all -inf")
+        if not bool(torch.isneginf(got["inlier_frac"][2:]).all()):
+            raise AssertionError("overflow: a dropped frame's inlier_frac is not -inf")
+        # gating_probs apart: the gating CNN runs at the dispatch's width.
+        _bit_equal({k: v[:2] for k, v in got.items()}, pair,
+                   [k for k in pair if k != "gating_probs"],
+                   f"overflow {impl}: frames 0-1 against a 2-frame dispatch")
+    log(f"[serving] routed overflow (capacity 2, 4 copies of one image): frames 2-3 "
+        f"evaluated the sentinel {M} in every slot, finite poses, -inf scores under "
+        f"pallas; frames 0-1 bit-equal to a 2-frame dispatch")
+    return res
+
+
+def _prior_checks(dev, params, requests, routed, dense):
+    """A prior-slot batch (PRIOR_SLOTS poses a frame) through the dense and
+    the routed K = ROUTED_K bucket functions: with an all-invalid mask every
+    output equals the plain dispatch's bit for bit; launches per call as
+    PRIOR_LAUNCHES says."""
+    rng = np.random.default_rng(5)
+    lanes = 4
+    plain = {"image": requests[-1][:lanes], "seed": np.arange(lanes) + 500}
+    prior = dict(plain, prior_rvec=rng.uniform(-0.3, 0.3, (lanes, PRIOR_SLOTS, 3)).astype(
+        np.float32), prior_tvec=rng.uniform(-1, 1, (lanes, PRIOR_SLOTS, 3)).astype(np.float32),
+        prior_valid=np.zeros((lanes, PRIOR_SLOTS), bool))
+    launches = {}
+    for name, fns in (("dense", dense), (f"routed_k{ROUTED_K}", routed[ROUTED_K])):
+        for impl, fn in fns.items():
+            want, _ = counted(dev, impl, f"{name} plain", lambda: fn(params, plain))
+            got, n = counted(dev, impl, f"{name} prior batch", lambda: fn(params, prior),
+                             prior=True)
+            launches[f"{name} {impl}"] = n
+            _bit_equal(got, want, want.keys(), f"{name} {impl}: an all-invalid prior")
+            if bool(got["prior_hit"].any()) or not bool((got["prior_slot"] == PRIOR_SLOTS).all()):
+                raise AssertionError(f"{name} {impl}: an invalid prior won")
+    log(f"[serving] prior batch ({PRIOR_SLOTS} slots, all invalid) bit-equal to the plain "
+        f"dispatch through the dense and routed K={ROUTED_K} bucket functions; launches "
+        f"per prior dispatch {launches}")
+    return launches
 
 
 def _device_busy(dev, run, label, top=6):
@@ -620,6 +1001,69 @@ def _stage_breakdown(dev, params, preset, images):
                 f, params["c"], cfg.tau, cfg.beta, iters=cfg.refine_iters))
     log(f"[serving] stages of one {B}-lane fused_select dispatch (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    return stages
+
+
+def _routed_stage_breakdown(dev, params, preset, images, k):
+    """Host-clock times (synchronized) of each stage of one routed
+    "fused_select" dispatch of ``images`` at top-``k``, in the order
+    make_routed_scene_bucket_fn runs them: the expert CNNs run over
+    M blocks of routed_serve_capacity frames whatever the bucket."""
+    import dataclasses
+
+    import torch
+
+    from esac_tpu_torch.data.synthetic import output_pixel_grid
+    from esac_tpu_torch.parallel.esac_sharded import route_frames_to_experts
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import (_routed_sets, routed_serve_capacity,
+                                            select_topk_experts)
+    from esac_tpu_torch.ransac.kernel import (_infer_winner, _take, frame_generators,
+                                              generate_hypotheses)
+    from esac_tpu_torch.ransac.refine import refine_soft_inliers
+
+    B, M = len(images), preset.num_experts
+    cfg = RansacConfig(scoring_impl="fused_select")
+    cap = routed_serve_capacity(cfg, k, M)
+    cfg_k = dataclasses.replace(cfg, n_hyps=cfg.n_hyps * M // k)
+    imgs = torch.as_tensor(images, device=dev)
+    pixels = output_pixel_grid(preset.height, preset.width, device=dev)
+    f = params["f"].expand(B)
+    stages = {}
+
+    def stage(name, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # the second pass is the one kept (warm)
+            logits = stage("gating_cnn", lambda: params["gating"](imgs))
+            sel = select_topk_experts(logits, k)
+            kept, pos, slot_frame, _ = route_frames_to_experts(sel, M, cap)
+            blocks = stage("expert_cnn_blocks", lambda: torch.stack(
+                [net(imgs[slot_frame[m]]) for m, net in enumerate(params["expert"])]))
+            coords = (blocks.reshape(M, cap, -1, 3) + params["centers"][:, None, None])[
+                sel, pos.clamp(max=cap - 1)]
+            gens = frame_generators(range(B), dev)
+            idx = stage("sampling", lambda: _routed_sets(gens, cfg_k.n_hyps, coords.shape[2],
+                                                         M, sel))
+            fBK = f[:, None].expand(B, k)
+            rv, tv = stage("p3p_polish", lambda: generate_hypotheses(
+                None, coords, pixels, fBK, params["c"], cfg_k, idx=idx))
+            best_j, best_s, _ = stage("score_select", lambda: _infer_winner(
+                rv, tv, coords, pixels, fBK, params["c"], cfg_k))
+            m = torch.argmax(torch.where(kept, best_s, -torch.inf), 1)
+            j = _take(best_j, m)
+            stage("refine", lambda: refine_soft_inliers(
+                _take(_take(rv, m), j), _take(_take(tv, m), j), _take(coords, m), pixels,
+                f, params["c"], cfg.tau, cfg.beta, iters=cfg.refine_iters))
+    log(f"[serving] stages of one {B}-lane routed K={k} fused_select dispatch ({M} x {cap} "
+        f"expert-CNN images, {cfg_k.n_hyps} hypotheses a map; ms): "
+        + ", ".join(f"{name} {v:.2f}" for name, v in stages.items()))
     return stages
 
 
@@ -895,25 +1339,37 @@ def main(argv=None) -> int:
     k = kernels["serving"]
     train_launches = {name: sum(n[name] for run in training["runs"].values()
                                 for n in run["launches"]) for name in KERNELS}
+    routed = serving["routed"]
+    routed_launches = {name: sum(by_impl[name] for launches in routed["launches"].values()
+                                 for by_impl in launches.values()) for name in KERNELS}
+    prior_launches = {name: sum(n[name] for n in routed["prior"].values()) for name in KERNELS}
+
+    def entry(name, short, replaces, impl):
+        err = "err_select" if short == "select" else "err_scores"
+        return {
+            "name": name, "route": "cuda", "source": "esac_tpu_torch/csrc/soft_inlier.cu",
+            "replaces": replaces, "launches": serving["launches"][impl][name],
+            "max_abs_err": k[err],
+            "ms": k["ms"][short], "kernel_ms": k["ms"][f"{short}_kernel"],
+            "wrapper_ms": k["ms"][short], "plain_ms": k["ms"][f"{short}_plain"],
+            "bound_ms": k["bound"][short]["bound_ms"],
+            "bound_by": k["bound"][short]["bound_by"], "library_ms": None,
+            "training_launches": train_launches[name],
+            "routed_launches": routed_launches[name], "prior_launches": prior_launches[name],
+            "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
+                               "kernel_ms": r["ms"][f"{short}_kernel"],
+                               "wrapper_ms": r["ms"][short],
+                               "plain_ms": r["ms"][f"{short}_plain"],
+                               "bound_ms": r["bound"][short]["bound_ms"],
+                               "bound_by": r["bound"][short]["bound_by"],
+                               "max_abs_err": r[err]}
+                       for label, r in kernels.items()},
+        }
+
     line = {"kernels": [
-        {"name": "soft_inlier_scores", "route": "cuda",
-         "source": "esac_tpu_torch/csrc/soft_inlier.cu",
-         "replaces": "esac_tpu/ransac/pallas_scoring.py:94",
-         "launches": serving["launches"]["pallas"]["soft_inlier_scores"],
-         "max_abs_err": k["err_scores"], "ms": k["ms"]["score"],
-         "kernel_ms": k["ms"]["score_kernel"], "wrapper_ms": k["ms"]["score"],
-         "plain_ms": k["ms"]["score_plain"], "bound_ms": k["bound"]["score"]["bound_ms"],
-         "bound_by": k["bound"]["score"]["bound_by"], "library_ms": None,
-         "training_launches": train_launches["soft_inlier_scores"]},
-        {"name": "soft_inlier_select", "route": "cuda",
-         "source": "esac_tpu_torch/csrc/soft_inlier.cu",
-         "replaces": "esac_tpu/ransac/pallas_scoring.py:301",
-         "launches": serving["launches"]["fused_select"]["soft_inlier_select"],
-         "max_abs_err": k["err_select"], "ms": k["ms"]["select"],
-         "kernel_ms": k["ms"]["select_kernel"], "wrapper_ms": k["ms"]["select"],
-         "plain_ms": k["ms"]["select_plain"], "bound_ms": k["bound"]["select"]["bound_ms"],
-         "bound_by": k["bound"]["select"]["bound_by"], "library_ms": None,
-         "training_launches": train_launches["soft_inlier_select"]},
+        entry("soft_inlier_scores", "score", "esac_tpu/ransac/pallas_scoring.py:94", "pallas"),
+        entry("soft_inlier_select", "select", "esac_tpu/ransac/pallas_scoring.py:301",
+              "fused_select"),
     ]}
     if args.out:
         out = pathlib.Path(args.out)

@@ -8,9 +8,14 @@ so the tests run the same numpy inputs through both.  It imports ``torch``
 and numpy only -- never ``jax``, ``flax`` or anything under ``esac_tpu``.
 
 Entry points (``ransac.kernel.dsac_infer[_frames]``,
-``ransac.esac.esac_infer[_frames]``, ``registry.serving.make_scene_bucket_fn``)
-run on the card unless the caller passes ``device="cpu"``; they raise when
-CUDA is missing instead of falling back.  The two soft-inlier scoring
+``ransac.esac.esac_infer[_frames]``, the top-k, routed and prior-slot
+entries ``esac_infer_topk[_frames]``, ``esac_infer_routed_frames[_prior]``,
+``esac_infer_prior``, ``esac_infer_frames_prior``, and
+``registry.serving.make_scene_bucket_fn`` /
+``make_routed_scene_bucket_fn``) run on the card unless the caller passes
+``device="cpu"``; they raise when CUDA is missing instead of falling back.
+``parallel.esac_sharded.route_frames_to_experts`` is the routed path's
+capacity dispatch.  The two soft-inlier scoring
 kernels are hand-written CUDA (``csrc/soft_inlier.cu``), built with
 ``nvcc`` at first use (``_build.py``).
 

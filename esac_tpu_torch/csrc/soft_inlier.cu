@@ -22,9 +22,12 @@
 // Both entries run the same partial pass, then a final pass of their own:
 // - Partial pass (partial_kernel): one thread per hypothesis.  A block owns
 //   one problem, a tile of kTile hypotheses and one chunk of the cells; the
-//   wrapper picks the number of chunks S so that the grid of
-//   P x tiles x S blocks fills the card for about four waves of resident
-//   blocks, so SMs that finish early take more work.  Each thread keeps its
+//   wrapper cuts the N cells into S chunks of a fixed 32 cells
+//   (fused_scoring.cell_chunks), so a problem's partial sums, and their
+//   order, do not depend on how many problems share the launch -- a frame
+//   scores bit-equal in every frame bucket.  The grid of P x tiles x S
+//   blocks is many short blocks, so SMs that finish early take more work.
+//   Each thread keeps its
 //   12 pose floats, f, c and one accumulator in registers -- within the
 //   48 registers that __launch_bounds__(kTile, 10) asks for, so 10 blocks
 //   (40 warps) stay resident per SM.  The block stages its cells through

@@ -19,7 +19,7 @@ from esac_tpu_torch.geometry.camera import MIN_DEPTH, reprojection_errors
 from esac_tpu_torch.geometry.quartic import solve_quartic
 from esac_tpu_torch.geometry.rotations import rodrigues, so3_log
 from esac_tpu_torch.utils.num import safe_norm, safe_sqrt
-from esac_tpu_torch.utils.precision import hmm
+from esac_tpu_torch.utils.precision import fixed_sum, hmm
 
 
 def bearings(x2d: torch.Tensor, f: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -136,6 +136,45 @@ def _solve6_spd(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return M[..., 6]
 
 
+class _NormalEquations(torch.autograd.Function):
+    """The weighted Gauss-Newton normal equations over the cells n:
+    A = sum_n w_n (u_n u_n^T + v_n v_n^T) (..., 6, 6) and
+    g = sum_n w_n (ru_n u_n + rv_n v_n) (..., 6), from the Jacobian rows
+    u, v (..., N, 6), residuals ru, rv and weights w (..., N).
+
+    Forward: per-cell products summed over the cells by ``fixed_sum``, so a
+    frame's step is bit-equal whatever batch it rides (cuBLAS would split
+    the 6 x N x 6 products by the batch).  Backward: the closed form
+    through batched products -- gradients belong to training, which keeps
+    no batch contract -- so no graph of the per-cell products is kept.
+    """
+
+    @staticmethod
+    def forward(ctx, u, v, ru, rv, w):
+        ctx.save_for_backward(u, v, ru, rv, w)
+        wu, wv = w[..., None] * u, w[..., None] * v
+        A = (fixed_sum(u[..., :, None] * wu[..., None, :], dim=-3)
+             + fixed_sum(v[..., :, None] * wv[..., None, :], dim=-3))
+        g = fixed_sum(wu * ru[..., None], dim=-2) + fixed_sum(wv * rv[..., None], dim=-2)
+        return A, g
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gA, gg):
+        u, v, ru, rv, w = ctx.saved_tensors
+        sym = gA + gA.transpose(-1, -2)
+        gg = gg[..., None, :]
+        du = w[..., None] * (torch.matmul(u, sym) + ru[..., None] * gg)
+        dv = w[..., None] * (torch.matmul(v, sym) + rv[..., None] * gg)
+        dru = w * (u * gg).sum(-1)
+        drv = w * (v * gg).sum(-1)
+        dw = None
+        if ctx.needs_input_grad[4]:
+            dw = sum(((row @ gA) * row).sum(-1) + r * (row * gg).sum(-1)
+                     for row, r in ((u, ru), (v, rv)))
+        return du, dv, dru, drv, dw
+
+
 def _gn_pose_step(
     R: torch.Tensor,
     t: torch.Tensor,
@@ -176,11 +215,7 @@ def _gn_pose_step(
         [-fu0 * W2 + fv2 * W1, -fv2 * W0, fu0 * W0, torch.zeros_like(fu0), fu0, fv2],
         dim=-1,
     )
-    wu = w[..., None] * rowu
-    wv = w[..., None] * rowv
-    A = hmm(rowu.transpose(-1, -2), wu) + hmm(rowv.transpose(-1, -2), wv)  # (..., 6, 6)
-    g = (hmm(wu.transpose(-1, -2), ru[..., None])[..., 0]
-         + hmm(wv.transpose(-1, -2), rv[..., None])[..., 0])
+    A, g = _NormalEquations.apply(rowu, rowv, ru, rv, torch.broadcast_to(w, ru.shape))
     trace = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     mu = damping * (trace / 6.0 + 1e-6)
     eye = torch.eye(6, dtype=A.dtype, device=A.device)

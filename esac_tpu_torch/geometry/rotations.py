@@ -53,6 +53,15 @@ def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * K + b[..., None, None] * hmm(K, K)
 
 
+def _angle(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atan2(y, x), computed in float64 and rounded once to the inputs'
+    dtype.  PyTorch's CPU atan2 rounds differently in a tensor's vectorized
+    body than in its scalar tail, so in float32 one frame's angle could
+    change by an ulp with the batch it rides; the once-rounded double is
+    the same either way."""
+    return torch.atan2(y.double(), x.double()).to(y.dtype)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> axis-angle vector. (..., 3, 3) -> (..., 3).
 
@@ -72,7 +81,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     two_sin = safe_norm(w)  # = 2 sin(t)
-    theta = torch.atan2(two_sin, trace - 1.0)
+    theta = _angle(two_sin, trace - 1.0)
     near_pi = cos_t < -0.999
     axis_generic = w / two_sin[..., None]
     denom_pi = 2.0 * (1.0 - cos_t)
@@ -103,7 +112,7 @@ def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
-    return torch.atan2(safe_norm(w), trace - 1.0) * (180.0 / math.pi)
+    return _angle(safe_norm(w), trace - 1.0) * (180.0 / math.pi)
 
 
 def rot_error_deg(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:

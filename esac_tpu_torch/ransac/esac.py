@@ -1,5 +1,5 @@
-"""Multi-expert ESAC (counterpart of ``esac_tpu/ransac/esac.py``): dense
-inference and the end-to-end training loss.
+"""Multi-expert ESAC (counterpart of ``esac_tpu/ransac/esac.py``): dense,
+top-k, routed and prior-slot inference, and the end-to-end training loss.
 
 Every expert gets ``cfg.n_hyps`` hypotheses (the reference's "256
 hyp/expert", BASELINE config #2), each scored on its own expert's
@@ -7,16 +7,34 @@ coordinate map; the best-supported hypothesis across experts wins and is
 refined.  All B x M (frame, expert) problems of a dispatch are one batched
 P3P solve and one scoring-kernel launch.
 
+The serving variants share that one path (:func:`_serve_frames`):
+
+- top-k (:func:`esac_infer_topk_frames`): the dense path over the k maps
+  with the largest gating logits;
+- routed (:func:`esac_infer_routed_frames`): the K maps each frame's
+  capacity dispatch kept, ``cfg.n_hyps * M // K`` hypotheses each, dropped
+  (frame, expert) pairs scored ``-inf``.  A frame's generator draws
+  (M, nh, 4) sets and the selected experts' rows are kept, so every
+  expert's stream is keyed by its global index, as
+  ``jax.random.split(key, M)[sel]`` keys it in the reference: at K = M
+  the routed path is the dense path draw for draw, bit for bit;
+- prior slot (:func:`esac_infer_frames_prior`,
+  :func:`esac_infer_routed_frames_prior`): a frame's P motion-prior poses
+  scored on every (live) map through :func:`_score_hypotheses`' math, on
+  the SAME cell subsample as the sampled stream, replacing an expert's
+  streamed winner only on a strictly greater score, so an all-invalid mask
+  gives the plain entry's result bit for bit.
+
 :func:`esac_train_loss_frames` is the training loss, differentiable with
 respect to the coordinates and the gating logits: "dense" weighs every
 expert's expected pose loss by its gating probability (an exact gating
 gradient), "sampled" draws an expert per hypothesis and carries the gating
 gradient by a REINFORCE term.
-
-Still to port (ROADMAP): top-k, routed and prior-slot entries.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,6 +46,7 @@ from esac_tpu_torch.geometry.rotations import rodrigues
 from esac_tpu_torch.ransac.kernel import (
     _infer_winner,
     _refine_hypotheses,
+    _score_cells,
     _score_hypotheses,
     _take,
     as_f32,
@@ -56,21 +75,129 @@ def _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx=None):
     return rvecs, tvecs, fBM
 
 
-def _per_expert_winners(generators, coords_all, pixels, f, c, cfg, idx=None):
-    """n_hyps hypotheses per expert, then score+select per expert.
+def _routed_sets(generators, n_hyps, N, M, sel):
+    """Correspondence sets of the selected experts: each frame's generator
+    draws (M, n_hyps, 4) -- one stream per GLOBAL expert index, as
+    :func:`_expert_hypotheses` draws them for the dense path -- and the
+    rows of ``sel`` (B, K) are kept.  Returns (B, K, n_hyps, 4)."""
+    idx = torch.stack([sample_correspondence_sets(g, n_hyps, N, (M,)) for g in generators])
+    return idx[torch.arange(len(generators), device=idx.device)[:, None], sel.to(idx.device)]
 
-    Shapes as in :func:`_expert_hypotheses`.  Returns ``(rvecs, tvecs,
-    best_j, best_s, scores)``: poses (B, M, n_hyps, 3), per-expert winner
-    index and score (B, M) -- scaled by N / score_cells when subsampling --
-    and the (B, M, n_hyps) scores, None under "fused_select".  The global
-    winner is ``m* = argmax(best_s)``, ``j* = best_j[m*]``: the flat
-    first-max argmax over all M x n_hyps scores, ties included.
+
+def _per_expert_winners(generators, coords_all, pixels, f, c, cfg, idx=None, sel=None,
+                        M=None):
+    """n_hyps hypotheses per map, then score+select per map.
+
+    Shapes as in :func:`_expert_hypotheses`; ``sel`` (B, K) names the
+    global expert (of ``M``) behind each of the K maps of a routed
+    dispatch, whose sets :func:`_routed_sets` draws; None for the dense
+    path, where map k is expert k.  Returns
+    ``(rvecs, tvecs, best_j, best_s, scores, cells)``: poses (B, K, n_hyps,
+    3), per-map winner index and score (B, K) -- scaled by N / score_cells
+    when subsampling --, the (B, K, n_hyps) scores (None under
+    "fused_select"), and the cell subsample ``(coords_s, pixels_s, scale)``
+    the scores were taken on (the prior slot scores on the same cells).
+    The global winner is ``m* = argmax(best_s)``, ``j* = best_j[m*]``: the
+    flat first-max argmax over all K x n_hyps scores, ties included.
     """
+    if idx is None and sel is not None:
+        idx = _routed_sets(generators, cfg.n_hyps, coords_all.shape[2], M, sel)
     rvecs, tvecs, fBM = _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx)
-    coords_s, pixels_s, scale = subsample_cells(generators, coords_all, pixels,
-                                                cfg.score_cells)
-    best_j, best_s, scores = _infer_winner(rvecs, tvecs, coords_s, pixels_s, fBM, c, cfg)
-    return rvecs, tvecs, best_j, best_s * scale, None if scores is None else scores * scale
+    cells = subsample_cells(generators, coords_all, pixels, cfg.score_cells)
+    best_j, best_s, scores = _infer_winner(rvecs, tvecs, cells[0], cells[1], fBM, c, cfg)
+    scale = cells[2]
+    return (rvecs, tvecs, best_j, best_s * scale, None if scores is None else scores * scale,
+            cells)
+
+
+def _prior_slot_winner(prior_rvecs, prior_tvecs, prior_valid, cells, f, c, cfg):
+    """Best of each frame's P motion-prior poses on each of its K maps
+    (counterpart of ``_prior_slot_winner``): prior_rvecs/tvecs (B, P, 3),
+    prior_valid (B, P) bool, ``cells`` the sampled stream's subsample
+    (coords (B, K, n, 3), pixels, scale), f (B, K).  The priors score
+    through :func:`_score_cells`, the math the sampled stream's scores are
+    comparable with: under "pallas" one launch of the scoring kernel at
+    H = P.  Invalid slots mask to ``-inf``.  Returns (pj, ps) (B, K): the
+    winning prior and its masked score."""
+    coords_s = cells[0]
+    lead = coords_s.shape[:2] + prior_rvecs.shape[1:]
+    scores = _score_cells(prior_rvecs[:, None].expand(lead), prior_tvecs[:, None].expand(lead),
+                          cells, f, c, cfg)
+    masked = torch.where(prior_valid[:, None, :], scores, -torch.inf)
+    pj = torch.argmax(masked, dim=-1)
+    return pj, torch.gather(masked, -1, pj[..., None])[..., 0]
+
+
+def _serve_frames(generators, gating_logits, coords, pixels, f, c, cfg, idx, device,
+                  routing=None, prior=None) -> dict:
+    """The inference path every serving entry shares.
+
+    coords (B, K, N, 3): the K maps of each frame -- every expert's for the
+    dense path (``routing`` None, K = M), the capacity dispatch's for a
+    routed one: ``routing = (selected (B, K), kept (B, K))``, global expert
+    ids and the pairs that survived capacity; each map then gets
+    ``cfg.n_hyps * M // K`` hypotheses and a dropped pair scores ``-inf``
+    (a frame whose every pair dropped refines hypothesis 0 of slot 0: the
+    reference's flat-argmax failure output).  ``prior = (rvecs, tvecs,
+    valid)`` (B, P, 3), (B, P, 3), (B, P) adds the prior slot.
+    """
+    dev = resolve_device(device)
+    coords, pixels, c = as_f32(coords, dev), as_f32(pixels, dev), as_f32(c, dev)
+    gating_logits = as_f32(gating_logits, dev)
+    B, K, N = coords.shape[:3]
+    M = gating_logits.shape[-1]
+    f = as_f32(f, dev).expand(B)
+    sel = live = None
+    if routing is not None:
+        sel = torch.as_tensor(routing[0], device=dev).long()
+        live = torch.as_tensor(routing[1], device=dev).bool()
+        cfg = dataclasses.replace(cfg, n_hyps=max(1, cfg.n_hyps * M // K))
+    rvecs, tvecs, best_j, best_s, scores, cells = _per_expert_winners(
+        generators, coords, pixels, f, c, cfg, idx=idx, sel=sel, M=M)
+    if live is not None:
+        best_s = torch.where(live, best_s, -torch.inf)
+        if scores is not None:
+            scores = torch.where(live[..., None], scores, -torch.inf)
+    ext_s = best_s
+    if prior is not None:
+        p_rv, p_tv, p_valid = (as_f32(prior[0], dev), as_f32(prior[1], dev),
+                               torch.as_tensor(prior[2], device=dev).bool())
+        pj, ps = _prior_slot_winner(p_rv, p_tv, p_valid, cells, f[:, None].expand(B, K), c,
+                                    cfg)
+        if live is not None:
+            ps = torch.where(live, ps, -torch.inf)
+        is_prior = ps > best_s  # strict: the sampled slots come first
+        ext_s = torch.where(is_prior, ps, best_s)
+    mi = torch.argmax(ext_s, dim=1)
+    j = _take(best_j, mi)
+    if live is not None:
+        j = torch.where(_take(live, mi), j, torch.zeros_like(j))
+    rv0, tv0 = _take(_take(rvecs, mi), j), _take(_take(tvecs, mi), j)
+    if prior is not None:
+        hit, slot = _take(is_prior, mi), _take(pj, mi)
+        rv0 = torch.where(hit[:, None], _take(p_rv, slot), rv0)
+        tv0 = torch.where(hit[:, None], _take(p_tv, slot), tv0)
+    rvec, tvec = refine_soft_inliers(
+        rv0, tv0, _take(coords, mi), broadcast_pixels(pixels, (B,)), f, c,
+        cfg.tau, cfg.beta, iters=cfg.refine_iters)
+    best = _take(ext_s, mi)
+    out = {
+        "rvec": rvec,
+        "tvec": tvec,
+        "expert": mi if sel is None else _take(sel, mi),
+        "gating_probs": torch.softmax(gating_logits, dim=-1),
+        "inlier_frac": best / N,
+    }
+    if sel is not None:
+        out["experts_evaluated"] = torch.where(live, sel, torch.full_like(sel, M))
+    if prior is not None:
+        out["prior_hit"] = hit
+        out["prior_slot"] = torch.where(hit, slot, torch.full_like(slot, p_rv.shape[1]))
+    if scores is None:
+        out["score"] = best
+    else:
+        out["scores"] = scores
+    return out
 
 
 def _no_stage(name: str) -> None:
@@ -130,32 +257,8 @@ def esac_infer_frames(
     winner's 'score' under "fused_select".  Selection is by consensus
     score; the gate is reported, not used.
     """
-    dev = resolve_device(device)
-    coords_all, pixels, c = as_f32(coords_all, dev), as_f32(pixels, dev), as_f32(c, dev)
-    gating_logits = as_f32(gating_logits, dev)
-    B, N = coords_all.shape[0], coords_all.shape[2]
-    f = as_f32(f, dev).expand(B)
-    rvecs, tvecs, best_j, best_s, scores = _per_expert_winners(
-        generators, coords_all, pixels, f, c, cfg, idx=idx)
-    m_star = torch.argmax(best_s, dim=1)
-    j_star = _take(best_j, m_star)
-    rvec, tvec = refine_soft_inliers(
-        _take(_take(rvecs, m_star), j_star), _take(_take(tvecs, m_star), j_star),
-        _take(coords_all, m_star), broadcast_pixels(pixels, (B,)), f, c,
-        cfg.tau, cfg.beta, iters=cfg.refine_iters)
-    best = _take(best_s, m_star)
-    out = {
-        "rvec": rvec,
-        "tvec": tvec,
-        "expert": m_star,
-        "gating_probs": torch.softmax(gating_logits, dim=-1),
-        "inlier_frac": best / N,
-    }
-    if scores is None:
-        out["score"] = best
-    else:
-        out["scores"] = scores
-    return out
+    return _serve_frames(generators, gating_logits, coords_all, pixels, f, c, cfg, idx,
+                         device)
 
 
 def esac_infer(
@@ -177,6 +280,198 @@ def esac_infer(
         pixels, as_f32(f, dev).reshape(1), c, cfg,
         idx=None if idx is None else torch.as_tensor(idx)[None], device=dev)
     return {k: v[0] for k, v in out.items()}
+
+
+def esac_infer_frames_prior(
+    generators: list[torch.Generator],
+    gating_logits,
+    coords_all,
+    pixels,
+    f,
+    c,
+    prior_rvecs,
+    prior_tvecs,
+    prior_valid,
+    cfg: RansacConfig = RansacConfig(),
+    idx=None,
+    device=None,
+) -> dict:
+    """:func:`esac_infer_frames` with a prior-hypothesis slot (counterpart
+    of ``esac_infer_frames_prior``): each frame's P motion-prior poses
+    ``prior_rvecs`` / ``prior_tvecs`` (B, P, 3) with a ``prior_valid``
+    (B, P) mask are scored on every expert's map, on the sampled stream's
+    cell subsample, and replace an expert's streamed winner only on a
+    strictly greater score.  The sampled stream is :func:`esac_infer_frames`'
+    draw for draw; with an all-invalid mask every output is bit-equal to
+    it.  Extra outputs: 'prior_hit' (B,) and 'prior_slot' (B,), the winning
+    prior or P when the sampled stream won."""
+    return _serve_frames(generators, gating_logits, coords_all, pixels, f, c, cfg, idx,
+                         device, prior=(prior_rvecs, prior_tvecs, prior_valid))
+
+
+def esac_infer_prior(
+    generator: torch.Generator,
+    gating_logits,
+    coords_all,
+    pixels,
+    f,
+    c,
+    prior_rvecs,
+    prior_tvecs,
+    prior_valid,
+    cfg: RansacConfig = RansacConfig(),
+    idx=None,
+    device=None,
+) -> dict:
+    """One frame: gating_logits (M,), coords_all (M, N, 3), pixels (N, 2),
+    priors (P, 3), (P, 3), (P,); ``idx`` (M, n_hyps, 4).
+    :func:`esac_infer_frames_prior` on a batch of one."""
+    dev = resolve_device(device)
+    out = esac_infer_frames_prior(
+        [generator], as_f32(gating_logits, dev)[None], as_f32(coords_all, dev)[None],
+        pixels, as_f32(f, dev).reshape(1), c, as_f32(prior_rvecs, dev)[None],
+        as_f32(prior_tvecs, dev)[None], torch.as_tensor(prior_valid, device=dev)[None], cfg,
+        idx=None if idx is None else torch.as_tensor(idx)[None], device=dev)
+    return {k: v[0] for k, v in out.items()}
+
+
+def _top_experts(gating_logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` largest logits' expert ids in ``jax.lax.top_k``'s order:
+    descending, equal logits by ascending index (a stable descending sort;
+    ``torch.topk`` leaves the order of ties unspecified, and the zero
+    logits of an ungated preset are all ties)."""
+    return torch.sort(gating_logits, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def select_topk_experts(gating_logits, k: int) -> torch.Tensor:
+    """Per-frame top-``k`` expert ids by gating logit, sorted ascending by
+    global index (counterpart of ``select_topk_experts``): gating_logits
+    (..., M) -> (..., k) int64.  With every expert selected the layout is
+    0..M-1, which is what makes routed K = M the dense path bit for bit."""
+    return torch.sort(_top_experts(torch.as_tensor(gating_logits), k), dim=-1).values
+
+
+def routed_serve_capacity(cfg: RansacConfig, k: int, num_experts: int) -> int:
+    """Per-expert frame capacity of the routed serving path (counterpart of
+    ``routed_serve_capacity``): ``cfg.serve_capacity`` when positive, else
+    twice the balanced per-expert load of the largest frame bucket,
+    ceil(2 k max_bucket / M); at least 2 and at most that bucket.  One
+    constant per (cfg, k) -- never a function of the dispatch's bucket --
+    so the (frame, expert) pairs that survive capacity, and the expert
+    CNNs' batch width, are the same in every bucket."""
+    big = max(2, max(cfg.frame_buckets))
+    cap = cfg.serve_capacity if cfg.serve_capacity > 0 else -(-2 * k * big // num_experts)
+    return max(2, min(cap, big))
+
+
+def esac_infer_topk_frames(
+    generators: list[torch.Generator],
+    gating_logits,
+    coords_all,
+    pixels,
+    f,
+    c,
+    cfg: RansacConfig = RansacConfig(),
+    k: int = 4,
+    idx=None,
+    device=None,
+) -> dict:
+    """Gating-pruned inference (counterpart of ``esac_infer_topk_frames``):
+    per frame only the ``k`` experts with the largest logits (in
+    :func:`_top_experts`' order) generate and score hypotheses, through
+    :func:`esac_infer_frames` over their gathered maps; ``idx``
+    (B, k, n_hyps, 4) injects the sets.  'expert' is a global index,
+    'experts_evaluated' (B, k) the pruned set, 'gating_probs' the full
+    M-way softmax; 'scores' rows follow 'experts_evaluated'."""
+    dev = resolve_device(device)
+    gating_logits, coords_all = as_f32(gating_logits, dev), as_f32(coords_all, dev)
+    top = _top_experts(gating_logits, min(k, gating_logits.shape[-1]))
+    frame = torch.arange(top.shape[0], device=dev)[:, None]
+    out = esac_infer_frames(generators, gating_logits[frame, top], coords_all[frame, top],
+                            pixels, f, c, cfg, idx=idx, device=dev)
+    return {**out, "expert": _take(top, out["expert"]), "experts_evaluated": top,
+            "gating_probs": torch.softmax(gating_logits, dim=-1)}
+
+
+def esac_infer_topk(
+    generator: torch.Generator,
+    gating_logits,
+    coords_all,
+    pixels,
+    f,
+    c,
+    cfg: RansacConfig = RansacConfig(),
+    k: int = 4,
+    idx=None,
+    device=None,
+) -> dict:
+    """One frame: gating_logits (M,), coords_all (M, N, 3), pixels (N, 2);
+    ``idx`` (k, n_hyps, 4).  :func:`esac_infer_topk_frames` on a batch of
+    one."""
+    dev = resolve_device(device)
+    out = esac_infer_topk_frames(
+        [generator], as_f32(gating_logits, dev)[None], as_f32(coords_all, dev)[None],
+        pixels, as_f32(f, dev).reshape(1), c, cfg, k=k,
+        idx=None if idx is None else torch.as_tensor(idx)[None], device=dev)
+    return {key: v[0] for key, v in out.items()}
+
+
+def esac_infer_routed_frames(
+    generators: list[torch.Generator],
+    gating_logits,
+    coords_sel,
+    selected,
+    kept,
+    pixels,
+    f,
+    c,
+    cfg: RansacConfig = RansacConfig(),
+    idx=None,
+    device=None,
+) -> dict:
+    """The RANSAC stage of gating-first routed serving (counterpart of
+    ``esac_infer_routed_frames``): gating_logits (B, M); coords_sel
+    (B, K, N, 3) the selected experts' maps, gathered back from the
+    per-expert capacity blocks; selected (B, K) global expert ids,
+    ascending (:func:`select_topk_experts`); kept (B, K) bool, False where
+    the capacity dispatch dropped the pair; pixels (N, 2) or (B, N, 2);
+    f (B,) or scalar; c (2,).  ``idx`` (B, K, nh, 4) injects the sets.
+
+    Each evaluated expert runs nh = max(1, n_hyps * M // K) hypotheses, so
+    a frame's budget stays M * n_hyps whatever K; all B x K problems score
+    in one kernel launch.  Dropped slots score ``-inf`` (in 'scores' too)
+    and show in 'experts_evaluated' as the sentinel M.  At K = M with
+    nothing dropped the result is :func:`esac_infer_frames`' bit for bit.
+    """
+    return _serve_frames(generators, gating_logits, coords_sel, pixels, f, c, cfg, idx,
+                         device, routing=(selected, kept))
+
+
+def esac_infer_routed_frames_prior(
+    generators: list[torch.Generator],
+    gating_logits,
+    coords_sel,
+    selected,
+    kept,
+    pixels,
+    f,
+    c,
+    prior_rvecs,
+    prior_tvecs,
+    prior_valid,
+    cfg: RansacConfig = RansacConfig(),
+    idx=None,
+    device=None,
+) -> dict:
+    """:func:`esac_infer_routed_frames` with the prior slot (counterpart of
+    ``esac_infer_routed_frames_prior``): the P priors of each frame
+    (B, P, 3), (B, P, 3), (B, P) score on each LIVE slot's map -- a dropped
+    slot's prior scores ``-inf`` -- as in :func:`esac_infer_frames_prior`;
+    with an all-invalid mask the result is :func:`esac_infer_routed_frames`'
+    bit for bit.  Extra outputs 'prior_hit' and 'prior_slot'."""
+    return _serve_frames(generators, gating_logits, coords_sel, pixels, f, c, cfg, idx,
+                         device, routing=(selected, kept),
+                         prior=(prior_rvecs, prior_tvecs, prior_valid))
 
 
 def esac_train_loss_frames(

@@ -230,29 +230,27 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-MIN_CHUNK_CELLS = 32
-CHUNK_WAVES = 4
+# Cells per chunk of the partial pass.  One constant: a problem's cells are
+# split the same way whatever else rides its launch, so a frame's partial
+# sums are added in one association in every frame bucket (the bucket
+# contract of serve/batching.py) and in every routed or prior dispatch.
+CHUNK_CELLS = 32
 
 
-def cell_chunks(P: int, H: int, N: int, resident_blocks: int,
-                tile: int = 128, waves: int = CHUNK_WAVES) -> tuple[int, int]:
+def cell_chunks(N: int) -> tuple[int, int]:
     """How the kernels' partial pass splits the N cells: ``(S, cells)``,
-    chunk s covering cells [s * cells, min(N, (s + 1) * cells)).  The grid
-    is P x ceil(H / tile) x S blocks; S is the most chunks that keep it
-    within ``waves`` waves of the ``resident_blocks`` the card holds at
-    once -- several short waves, so SMs that finish early take more blocks
-    -- with at least ``MIN_CHUNK_CELLS`` cells a chunk (the last may hold
-    fewer) and S = 1 where P alone fills the card.  Every cell falls in
-    exactly one chunk."""
-    blocks = P * -(-H // tile)
-    want = max(1, waves * resident_blocks // blocks)
-    cells = max(MIN_CHUNK_CELLS, -(-N // want))
-    return -(-N // cells), cells
+    chunk s covering cells [s * cells, min(N, (s + 1) * cells)), with
+    ``cells`` = :data:`CHUNK_CELLS` (the last chunk may hold fewer).  The
+    split depends on N alone -- not on the number of problems or
+    hypotheses, not on the card -- so one problem's scores are bit-equal
+    whatever batch it rides.  Every cell falls in exactly one chunk."""
+    return -(-N // CHUNK_CELLS), CHUNK_CELLS
 
 
 @functools.lru_cache(maxsize=None)
 def _partial_shape(device_index: int) -> tuple[int, int]:
-    """(resident blocks of the partial pass on the whole card, tile)."""
+    """(resident blocks of the partial pass on the whole card, tile): what
+    chip_smoke.py and tools/kernel_bound.py report beside the grid."""
     lib = _lib()
     with torch.cuda.device(device_index):
         per_sm = lib.esac_partial_blocks_per_sm()
@@ -263,16 +261,13 @@ def _partial_shape(device_index: int) -> tuple[int, int]:
 
 
 def _partial_buffers(op, dev, split=None) -> dict:
-    """The cell split ``(S, cells)`` -- by default :func:`cell_chunks` at
-    the card's resident blocks, so both entries run the same split for one
-    set of operands -- and the (P, S, H) partial-sum scratch."""
-    P, H = op["P"], op["H"]
-    if split is None:
-        resident, tile = _partial_shape(dev.index)
-        split = cell_chunks(P, H, op["N"], resident, tile)
-    S, cells = split
+    """The cell split ``(S, cells)`` -- by default :func:`cell_chunks`, so
+    both entries run the same split for one set of operands; ``split``
+    overrides it for tools/kernel_bound.py -- and the (P, S, H) partial-sum
+    scratch."""
+    S, cells = cell_chunks(op["N"]) if split is None else split
     return dict(S=S, cells=cells,
-                part=torch.empty((P, S, H), dtype=torch.float32, device=dev))
+                part=torch.empty((op["P"], S, op["H"]), dtype=torch.float32, device=dev))
 
 
 def _score_buffers(op, dev, split=None) -> dict:

@@ -131,7 +131,17 @@ def _score_hypotheses(generators, rvecs, tvecs, coords, pixels, f, c, cfg):
     expectation needs every score, so no select runs here).  Shapes as in
     :func:`_infer_winner`; optionally on a per-frame cell subsample
     (``cfg.score_cells``, drawn from ``generators``), scaled by
-    N / score_cells.  Returns (L..., H).
+    N / score_cells.  Returns (L..., H); :func:`_score_cells` on the
+    subsample."""
+    return _score_cells(rvecs, tvecs, subsample_cells(generators, coords, pixels,
+                                                      cfg.score_cells), f, c, cfg)
+
+
+def _score_cells(rvecs, tvecs, cells, f, c, cfg):
+    """Scores of every hypothesis on the cells ``(coords_s, pixels_s,
+    scale)`` of :func:`~esac_tpu_torch.ransac.scoring.subsample_cells`,
+    times ``scale``.  The prior slot of the serving path scores here, on
+    the sampled stream's own subsample.
 
     - "pallas": the scoring kernel through ``SoftInlierScores`` (one launch
       in the forward pass, the plain recompute in the backward);
@@ -141,8 +151,7 @@ def _score_hypotheses(generators, rvecs, tvecs, coords, pixels, f, c, cfg):
       backward);
     - "errmap": the full error map.
     """
-    coords_s, pixels_s, scale = subsample_cells(generators, coords, pixels,
-                                                cfg.score_cells)
+    coords_s, pixels_s, scale = cells
     impl = cfg.scoring_impl
     if impl == "pallas":
         return soft_inlier_scores_kernel(rodrigues(rvecs), tvecs, coords_s, pixels_s, f, c,

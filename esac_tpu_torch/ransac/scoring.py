@@ -10,6 +10,7 @@ import torch
 
 from esac_tpu_torch.geometry.camera import reprojection_errors
 from esac_tpu_torch.geometry.rotations import rodrigues
+from esac_tpu_torch.utils.precision import fixed_sum
 
 
 def reprojection_error_map(
@@ -33,8 +34,9 @@ def reprojection_error_map(
 
 
 def soft_inlier_score(errors: torch.Tensor, tau: float, beta: float) -> torch.Tensor:
-    """Soft inlier count per hypothesis. errors (..., N) -> (...)."""
-    return torch.sum(torch.sigmoid(beta * (tau - errors)), dim=-1)
+    """Soft inlier count per hypothesis. errors (..., N) -> (...), summed
+    in a batch-independent order (:func:`fixed_sum`)."""
+    return fixed_sum(torch.sigmoid(beta * (tau - errors)), dim=-1)
 
 
 def soft_inlier_weights(errors: torch.Tensor, tau: float, beta: float) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Scene serving: the port's counterpart of ``make_scene_bucket_fn``
-(``esac_tpu/registry/serving.py``).
+"""Scene serving: the port's counterparts of ``make_scene_bucket_fn`` and
+``make_routed_scene_bucket_fn`` (``esac_tpu/registry/serving.py``).
 
 ``make_scene_bucket_fn(preset, cfg)`` returns ``fn(params, batch)``: every
 expert CNN over the batch plus its scene center, the gating CNN (or zero
@@ -14,9 +14,20 @@ scene of a preset.
 ``models.convert.load_scene`` fills it from the JAX package's
 ``load_scene_params`` tree.  ``batch`` holds ``image`` (B, H, W, 3), a
 per-frame ``seed`` (B,) in place of the JAX package's PRNG keys, and
-optionally ``idx`` (B, M, n_hyps, 4) injected correspondence sets.  The
-session lanes' prior-slot batches, the registry, its caches and the
-dispatcher wait for later slices.
+optionally ``idx`` (B, M, n_hyps, 4) injected correspondence sets; a
+session lane's batch adds ``prior_rvec`` / ``prior_tvec`` (B, P, 3) and
+``prior_valid`` (B, P), and is served through the prior-slot entries
+(``esac_infer_frames_prior``, ``esac_infer_routed_frames_prior``).
+
+``make_routed_scene_bucket_fn(preset, cfg, k)`` serves gating first: the
+gating CNN, each frame's top-k experts, then each expert's CNN over ONE
+fixed block of ``routed_serve_capacity(cfg, k, M)`` frames that selected
+it (``parallel.esac_sharded.route_frames_to_experts``), and the routed
+hypothesis loop with the budget reallocated over the k experts.  The
+block width is one constant per (cfg, k), so a frame's expert CNNs run at
+the same width in every frame bucket.  At k = M it runs the dense CNN
+schedule and equals ``make_scene_bucket_fn`` bit for bit.  The registry,
+its caches and the dispatcher wait for later slices.
 """
 
 from __future__ import annotations
@@ -28,7 +39,15 @@ from esac_tpu_torch.data.synthetic import CAMERA_F, output_pixel_grid
 from esac_tpu_torch.models.expert import ExpertNet
 from esac_tpu_torch.models.gating import GatingNet
 from esac_tpu_torch.ransac.config import RansacConfig
-from esac_tpu_torch.ransac.esac import esac_infer_frames
+from esac_tpu_torch.parallel.esac_sharded import route_frames_to_experts
+from esac_tpu_torch.ransac.esac import (
+    esac_infer_frames,
+    esac_infer_frames_prior,
+    esac_infer_routed_frames,
+    esac_infer_routed_frames_prior,
+    routed_serve_capacity,
+    select_topk_experts,
+)
 from esac_tpu_torch.ransac.kernel import as_f32, frame_generators
 from esac_tpu_torch.registry.manifest import ManifestError, ScenePreset
 from esac_tpu_torch.utils.precision import resolve_device
@@ -83,15 +102,66 @@ def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
     pixels = output_pixel_grid(preset.height, preset.width, preset.stride, device=dev)
 
     def run(params: dict, batch: dict) -> dict:
-        if "prior_rvec" in batch:
-            raise ManifestError("prior-slot batches are not served by this slice")
         with torch.inference_mode():
             imgs = as_f32(batch["image"], dev)
             B = imgs.shape[0]
             coords, logits = scene_forward(params, imgs)
-            return esac_infer_frames(
-                frame_generators(batch["seed"], dev), logits, coords, pixels,
-                params["f"].expand(B), params["c"], cfg, idx=batch.get("idx"),
-                device=dev)
+            args = (frame_generators(batch["seed"], dev), logits, coords, pixels,
+                    params["f"].expand(B), params["c"])
+            if "prior_rvec" in batch:
+                return esac_infer_frames_prior(*args, *_priors(batch), cfg,
+                                               idx=batch.get("idx"), device=dev)
+            return esac_infer_frames(*args, cfg, idx=batch.get("idx"), device=dev)
+
+    return run
+
+
+def _priors(batch: dict) -> tuple:
+    return batch["prior_rvec"], batch["prior_tvec"], batch["prior_valid"]
+
+
+def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
+                                device=None):
+    """Gating-first routed serving for a (preset, cfg, k) bucket (the
+    module docstring): ``fn(params, batch)`` -> per-frame result dict, with
+    'experts_evaluated' (B, k) (sentinel M where capacity dropped the
+    pair).  Raises ``ManifestError`` for k outside 1..M, or k < M on an
+    ungated preset (every frame would ride one arbitrary subset)."""
+    M = preset.num_experts
+    if not 1 <= k <= M:
+        raise ManifestError(f"routed top-k {k} outside 1..{M}")
+    if k < M and not preset.gated:
+        raise ManifestError("routed serving with k < num_experts needs a gated preset: "
+                            "without a gating net every frame would ride the same "
+                            "arbitrary expert subset")
+    cap = routed_serve_capacity(cfg, k, M)
+    dev = resolve_device(device)
+    pixels = output_pixel_grid(preset.height, preset.width, preset.stride, device=dev)
+
+    def run(params: dict, batch: dict) -> dict:
+        with torch.inference_mode():
+            imgs = as_f32(batch["image"], dev)
+            B = imgs.shape[0]
+            if k == M:  # identity routing: the dense CNN schedule
+                coords, logits = scene_forward(params, imgs)
+                selected = torch.arange(M, device=dev).expand(B, M)
+                kept = torch.ones((B, M), dtype=torch.bool, device=dev)
+            else:
+                logits = params["gating"](imgs)
+                selected = select_topk_experts(logits, k)
+                kept, pos, slot_frame, _ = route_frames_to_experts(selected, M, cap)
+                # One forward per expert over its fixed block of cap frames;
+                # dropped pairs gather a clamped (wrong) row: finite garbage
+                # that the hypothesis loop scores -inf.
+                blocks = torch.stack([net(imgs[slot_frame[m]])
+                                      for m, net in enumerate(params["expert"])])
+                blocks = blocks.reshape(M, cap, -1, 3) + params["centers"][:, None, None, :]
+                coords = blocks[selected, pos.clamp(max=cap - 1)]
+            args = (frame_generators(batch["seed"], dev), logits, coords, selected, kept,
+                    pixels, params["f"].expand(B), params["c"])
+            if "prior_rvec" in batch:
+                return esac_infer_routed_frames_prior(*args, *_priors(batch), cfg,
+                                                      idx=batch.get("idx"), device=dev)
+            return esac_infer_routed_frames(*args, cfg, idx=batch.get("idx"), device=dev)
 
     return run

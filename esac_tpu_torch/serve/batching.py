@@ -2,10 +2,28 @@
 
 Every dispatch is padded up to one of ``RansacConfig.frame_buckets``, with
 at least ``MIN_LANES`` physical lanes, by repeating the last real frame.
-Lanes are independent -- every stage of the frames-major pipeline is
-per-frame, each frame has its own generator -- so padding cannot perturb a
-real frame's result.  The staging cache and the dispatcher wait for the
-serving slice.
+Padding never perturbs a real frame: every stage is per-frame and each
+frame has its own generator.  What the card was shown to keep when the
+same frame rides another bucket (chip_smoke.py phase 5, NVIDIA H100):
+
+- the RANSAC stage (``esac_infer_frames`` on given coordinates and seeds):
+  bit-identical at 2, 4, 16 and 64 lanes under every scoring_impl -- the
+  kernels' cell split depends on N alone and the geometry core sums in a
+  batch-independent order (``utils/precision``);
+- routed serving (``make_routed_scene_bucket_fn``, k = 2 of 7), end to
+  end: bit-identical on every output but ``gating_probs`` (up to 2.4e-7
+  apart at 16 lanes), since the expert CNNs run over blocks of one fixed
+  width (``routed_serve_capacity``) in every bucket and the gating CNN at
+  the bucket's width;
+- dense serving (``make_scene_bucket_fn``), end to end: NOT bit-identical.
+  cuDNN convolves a frame differently in a batch of 2 than of 4 or 16
+  (scene coordinates up to 2e-4 apart at 16 lanes, gating logits 1.4e-6),
+  and RANSAC may then pick another hypothesis: with the full-width
+  preset's random weights the winning expert changed for some frames.
+  The dense contract is weaker: a frame's scene coordinates agree across
+  buckets to cuDNN's rounding, its pose only where the winner stays.
+
+The staging cache and the dispatcher wait for the serving slice.
 """
 
 from __future__ import annotations

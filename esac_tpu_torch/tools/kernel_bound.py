@@ -17,9 +17,10 @@ For each build it prints the registers and spills (ptxas) of the partial
 pass, which both entries launch, and of each entry's final pass (the score
 entry's sum pass, the select entry's first-max pass), the partial pass's
 resident blocks per SM, and the CUDA-event times of each entry's launch
-alone (operands packed once) at the serving shape (4 frames x 7 experts,
-H = 256, N = 4800) for cell splits of 1, 2, 4 and 8 waves, each checked
-against the plain version.  From the served build's SASS (``cuobjdump
+alone (operands packed once) at the 4- and 16-frame serving shapes (4 or 16
+frames x 7 experts, H = 256, N = 4800) for fixed chunks of 16, 32, 64 and
+128 cells (the served rule, ``fused_scoring.cell_chunks``, takes
+``CHUNK_CELLS``), each checked against the plain version.  From the served build's SASS (``cuobjdump
 -sass``) it counts the instructions of one (hypothesis, cell) pair of the
 partial pass -- the one kernel both entries run, so one count covers both:
 the distance between consecutive shared-memory cell loads (LDS.128) of the
@@ -47,7 +48,8 @@ BUILDS = {
     "blocks12": ["-DPARTIAL_BLOCKS_PER_SM=12"],
     "fast_math": ["--use_fast_math"],
 }
-WAVES = (1, 2, 4, 8)
+CHUNKS = (16, 32, 64, 128)  # cells per chunk of the partial pass
+FRAMES = (4, 16)
 KERNELS = ("partial_kernel", "sum_kernel", "select_final_kernel")
 
 
@@ -104,35 +106,37 @@ def time_builds(built, seed: int) -> dict:
     from esac_tpu_torch.ransac import fused_scoring as fs
 
     dev = torch.device("cuda", 0)
-    Rs, ts, coords, pixels, f, c = cs._scoring_inputs(dev, seed, 4, 7, 256, 480, 640)
-    op = fs._kernel_operands(Rs, ts, coords, pixels, f, c)
-    P, H, N = op["P"], op["H"], op["N"]
-    args = (Rs, ts, coords, pixels, f, c, 10.0, 0.5)
-    want_scores = fs._scores_plain(*args).reshape(P, H)
-    want_i, want_s, _ = fs._select_plain(*args)
     stream = fs._stream(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {}
+    for frames in FRAMES:
+        Rs, ts, coords, pixels, f, c = cs._scoring_inputs(dev, seed, frames, 7, 256, 480, 640)
+        op = fs._kernel_operands(Rs, ts, coords, pixels, f, c)
+        args = (Rs, ts, coords, pixels, f, c, 10.0, 0.5)
+        shapes[frames] = (op, fs._scores_plain(*args).reshape(op["P"], op["H"]),
+                          fs._select_plain(*args))
     out = {}
     for name, (path, log) in built.items():
         lib = fs._typed(ctypes.CDLL(str(path)))
-        per_sm, tile = lib.esac_partial_blocks_per_sm(), lib.esac_partial_tile()
         row = {k: ptxas(log, k) for k in KERNELS}
-        row["partial_blocks_per_sm"] = per_sm
-        for waves in WAVES:
-            split = fs.cell_chunks(P, H, N, per_sm * sms, tile, waves)
-            sel, sc = fs._select_buffers(op, dev, split), fs._score_buffers(op, dev, split)
-            fs._check(fs._launch_select(op, sel, 10.0, 0.5, stream, lib), name)
-            fs._check(fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), name)
-            select_ok = torch.equal(sel["best_idx"].long(), want_i.reshape(-1)) and \
-                torch.allclose(sel["best_score"], want_s.reshape(-1), **cs.SCORE_TOL)
-            scores_ok = torch.allclose(sc["out"], want_scores, **cs.SCORE_TOL)
-            row[f"waves{waves}"] = dict(
-                S=sel["S"], cells=sel["cells"],
-                select_kernel_ms=cs.time_ms(
-                    lambda: fs._launch_select(op, sel, 10.0, 0.5, stream, lib), dev, reps=50),
-                score_kernel_ms=cs.time_ms(
-                    lambda: fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), dev, reps=50),
-                select_agrees_with_plain=select_ok, scores_agree_with_plain=scores_ok)
+        row["partial_blocks_per_sm"] = lib.esac_partial_blocks_per_sm()
+        for frames, (op, want_scores, (want_i, want_s, _)) in shapes.items():
+            for cells in CHUNKS:
+                split = (-(-op["N"] // cells), cells)
+                sel, sc = fs._select_buffers(op, dev, split), fs._score_buffers(op, dev, split)
+                fs._check(fs._launch_select(op, sel, 10.0, 0.5, stream, lib), name)
+                fs._check(fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), name)
+                select_ok = torch.equal(sel["best_idx"].long(), want_i.reshape(-1)) and \
+                    torch.allclose(sel["best_score"], want_s.reshape(-1), **cs.SCORE_TOL)
+                scores_ok = torch.allclose(sc["out"], want_scores, **cs.SCORE_TOL)
+                row[f"P{op['P']}_cells{cells}"] = dict(
+                    S=sel["S"], cells=cells, served=split == fs.cell_chunks(op["N"]),
+                    select_kernel_ms=cs.time_ms(
+                        lambda: fs._launch_select(op, sel, 10.0, 0.5, stream, lib), dev,
+                        reps=50),
+                    score_kernel_ms=cs.time_ms(
+                        lambda: fs._launch_scores(op, sc, 10.0, 0.5, stream, lib), dev,
+                        reps=50),
+                    select_agrees_with_plain=select_ok, scores_agree_with_plain=scores_ok)
         out[name] = row
         print(name, json.dumps(row), flush=True)
     return out

@@ -69,8 +69,10 @@ def make_esac_train_step(scene: dict, optimizer: torch.optim.Optimizer,
     modules, gating module, centers (M, 3), f, c.  The optimizer updates
     whatever parameters it was given; their gradients are clipped to a
     global norm of ``clip_norm`` first (``torch.nn.utils.clip_grad_norm_``;
-    train_esac.py's 1.0 by default, inf leaves them as they are), as
-    ``optax.chain(clip_by_global_norm, adam)`` does.  Returns
+    inf leaves them as they are), as ``optax.chain(clip_by_global_norm,
+    adam)`` does.  The default 1.0 is train_esac.py's fine-tune recipe
+    value; its ``--clip-norm`` flag itself defaults to 0, which means no
+    clip (a command line maps 0 to inf here).  Returns
     ``step(seed, images, R_gts, t_gts, idx=None, experts=None,
     on_stage=None)`` -> mean loss over the frames: images (B, H, W, 3),
     R_gts (B, 3, 3), t_gts (B, 3); ``idx`` / ``experts`` inject the draws

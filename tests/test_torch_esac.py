@@ -120,7 +120,7 @@ def test_slice_matches_jax_pipeline(scene):
         imgs = torch.from_numpy(scene["images"])
         coords = torch.stack([net(imgs) for net in params["expert"]], 1).reshape(B, M, -1, 3)
         coords = coords + params["centers"][None, :, None]
-        _, _, best_j, _, _ = t_esac._per_expert_winners(
+        _, _, best_j, *_ = t_esac._per_expert_winners(
             frame_generators([0, 1, 2], "cpu"), coords, output_pixel_grid(H, W),
             params["f"].expand(B), params["c"], RansacConfig(n_hyps=NH),
             idx=torch.from_numpy(scene["idx"]))

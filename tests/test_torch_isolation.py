@@ -84,6 +84,24 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
                                 torch.zeros(4, 2), 1.0, [0, 0]),
         lambda: esac.esac_infer_frames([gen], torch.zeros(1, 1), torch.zeros(1, 1, 4, 3),
                                        torch.zeros(4, 2), 1.0, [0, 0]),
+        lambda: serving.make_routed_scene_bucket_fn(preset, RansacConfig(), 1),
+        lambda: esac.esac_infer_topk(gen, torch.zeros(1), torch.zeros(1, 4, 3),
+                                     torch.zeros(4, 2), 1.0, [0, 0], k=1),
+        lambda: esac.esac_infer_topk_frames([gen], torch.zeros(1, 1), torch.zeros(1, 1, 4, 3),
+                                            torch.zeros(4, 2), 1.0, [0, 0], k=1),
+        lambda: esac.esac_infer_routed_frames(
+            [gen], torch.zeros(1, 1), torch.zeros(1, 1, 4, 3), torch.zeros(1, 1),
+            torch.ones(1, 1), torch.zeros(4, 2), 1.0, [0, 0]),
+        lambda: esac.esac_infer_prior(gen, torch.zeros(1), torch.zeros(1, 4, 3),
+                                      torch.zeros(4, 2), 1.0, [0, 0], torch.zeros(2, 3),
+                                      torch.zeros(2, 3), torch.zeros(2)),
+        lambda: esac.esac_infer_frames_prior(
+            [gen], torch.zeros(1, 1), torch.zeros(1, 1, 4, 3), torch.zeros(4, 2), 1.0, [0, 0],
+            torch.zeros(1, 2, 3), torch.zeros(1, 2, 3), torch.zeros(1, 2)),
+        lambda: esac.esac_infer_routed_frames_prior(
+            [gen], torch.zeros(1, 1), torch.zeros(1, 1, 4, 3), torch.zeros(1, 1),
+            torch.ones(1, 1), torch.zeros(4, 2), 1.0, [0, 0], torch.zeros(1, 2, 3),
+            torch.zeros(1, 2, 3), torch.zeros(1, 2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

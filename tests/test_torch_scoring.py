@@ -187,26 +187,31 @@ def test_kernel_operands_reject_what_the_kernel_does_not_take():
     (1, 256, 4800),
     (1, 40, 300),
     (1, 1, 1),
-    (40000, 256, 4800),  # P alone fills the card: no split
+    (40000, 256, 4800),  # P alone fills the card: the same split
 ])
 def test_select_cell_chunks_tile_the_cells_once(P, H, N, resident):
     """The kernels' cell split (pure Python, run by both wrappers on the
-    card): the chunks tile [0, N) exactly once, each holds at least 32
-    cells but the last, the grid stays within CUDA's limits, and it fills
-    the card for at most CHUNK_WAVES waves wherever the cells allow."""
-    S, cells = fs.cell_chunks(P, H, N, resident)
+    card): the chunks tile [0, N) exactly once, each holds CHUNK_CELLS
+    cells but the last, the grid stays within CUDA's limits, and the split
+    depends on N alone -- whatever the number of problems P sharing the
+    launch and whatever the card holds (``resident``), so a frame's
+    partials are added in one association in every frame bucket."""
+    S, cells = fs.cell_chunks(N)
     chunks = [range(s * cells, min(N, (s + 1) * cells)) for s in range(S)]
     assert [n for ch in chunks for n in ch] == list(range(N))
-    assert all(len(ch) >= fs.MIN_CHUNK_CELLS for ch in chunks[:-1]) and len(chunks[-1]) >= 1
+    assert all(len(ch) == fs.CHUNK_CELLS for ch in chunks[:-1]) and len(chunks[-1]) >= 1
     tiles = -(-H // 128)
     grid_x, grid_y = tiles * S, P
     assert 1 <= grid_x < 2 ** 31 and 1 <= grid_y < 65536
-    blocks = P * tiles * S
-    full = fs.CHUNK_WAVES * resident
-    if S > 1:
-        assert blocks <= full
-    if N >= fs.MIN_CHUNK_CELLS * (full // (P * tiles)):
-        assert blocks >= min(full, P * tiles) // 2
+    meta = torch.device("meta")  # shapes only: nothing is allocated
+    for lanes in (1, 2, 3):  # the same problems in 1, 2 and 3 times the batch
+        op = dict(P=lanes * P, H=H, N=N)
+        buf = fs._partial_buffers(op, meta)
+        assert (buf["S"], buf["cells"]) == (S, cells)
+        assert buf["part"].shape == (lanes * P, S, H)
+    # The card's resident blocks do not enter the split: S is as many
+    # chunks as the cells make, and the grid is one wave or many.
+    assert S == -(-N // fs.CHUNK_CELLS) and resident > 0
 
 
 CSRC = pathlib.Path(fs.__file__).resolve().parents[1] / "csrc" / "soft_inlier.cu"
@@ -248,20 +253,23 @@ def test_typed_argtypes_match_the_c_signatures():
     (3, 1, 40, 300),     # ragged H and N
 ])
 def test_score_buffers_follow_the_cell_split(B, M, H, N, resident):
-    """The score wrapper's buffers for a split from cell_chunks at an
-    injected resident count: a (P, S, H) partial-sum scratch and (P, H)
-    scores; the select wrapper's scratch for the same split is the same
-    shape, so both entries run one partial pass."""
+    """The score wrapper's buffers for the split from cell_chunks (the
+    default) and for an explicit one (the ``split`` of
+    tools/kernel_bound.py, a cells-per-chunk of ``resident // 132 * 8``): a
+    (P, S, H) partial-sum scratch and (P, H) scores; the select wrapper's
+    scratch for the same split is the same shape, so both entries run one
+    partial pass."""
     zeros = torch.zeros
     op = fs._kernel_operands(zeros(B, M, H, 3, 3), zeros(B, M, H, 3), zeros(B, M, N, 3),
                              zeros(B, N, 2), zeros(B, M), zeros(2))
-    P = B * M
-    split = fs.cell_chunks(P, H, N, resident)
-    buf = fs._score_buffers(op, torch.device("cpu"), split)
-    assert (buf["S"], buf["cells"]) == split
-    assert buf["part"].shape == (P, split[0], H) and buf["out"].shape == (P, H)
-    assert buf["part"].dtype == buf["out"].dtype == torch.float32
-    assert fs._select_buffers(op, torch.device("cpu"), split)["part"].shape == (P, split[0], H)
+    P, cpu = B * M, torch.device("cpu")
+    cells = resident // 132 * 8
+    for split in (fs.cell_chunks(N), (-(-N // cells), cells)):
+        buf = fs._score_buffers(op, cpu, None if split == fs.cell_chunks(N) else split)
+        assert (buf["S"], buf["cells"]) == split
+        assert buf["part"].shape == (P, split[0], H) and buf["out"].shape == (P, H)
+        assert buf["part"].dtype == buf["out"].dtype == torch.float32
+        assert fs._select_buffers(op, cpu, split)["part"].shape == (P, split[0], H)
 
 
 # ------------------------------------------------------------- gradients
