@@ -81,7 +81,22 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  its split into stages (CUDA events recorded by the step's
                  own stage hook), peak memory, and one "pallas" step under
                  torch.profiler (device busy time, idle share, the ops
-                 with the most device time).
+                 with the most device time);
+7. workflow   -- the three training stages and the evaluation through the
+                 scripts' own main(argv) (esac_tpu_torch/scripts), in a
+                 temporary directory, at the --size ref widths and 640x480
+                 on seven synthetic scenes (synth0-synth6, config #2's
+                 M = 7) of 8 frames: train_expert for each scene (3
+                 iterations, batch 2), train_gating over the seven (3
+                 iterations), train_esac under "pallas" (256 hypotheses,
+                 batch 2, 4 iterations run as --stop-after 2, then
+                 --resume), test_esac under "pallas" (256 hypotheses,
+                 --eval-batch 4, --limit 2, --json) dense and with
+                 --topk 2.  Every main returns 0, every checkpoint reloads
+                 into its modules, the resumed run starts at iteration 2 with
+                 Adam's step count 2 and ends at 4, every printed loss is
+                 finite, the JSON has every key of the JAX script's, and the
+                 kernels launch exactly as WORKFLOW_LAUNCHES says.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -94,17 +109,22 @@ reference); a training step counts as one call (its backward launches
 nothing).
 
 Before the last line it prints one JSON line {"training": {...}}, one JSON
-line {"kernels": [...]} and the nvidia-smi name/power-limit line; the last
+line {"workflow": {...}}, one JSON line {"kernels": [...]} and the
+nvidia-smi name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -138,6 +158,9 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "ragged": (3, 1, 40, 120, 160),
     # Routed K = 2 of M = 7: 4 frames x 2 maps x 7 * 256 // 2 hypotheses.
     "routed_k2": (4, 2, 896, 480, 640),
+    # Phase 7's `test_esac --topk 2 --eval-batch 4`: the 4 x 2 gathered maps
+    # at the configured 256 hypotheses.
+    "eval_topk2": (4, 2, 256, 480, 640),
     # A prior-slot batch: 4 frames x 7 maps x 4 prior poses (launch-bound).
     "prior": (4, 7, 4, 480, 640),
 }
@@ -150,6 +173,10 @@ TRAIN_SIZE = dict(height=480, width=640, arch="ref", experts=7, frames=2, steps=
                   n_hyps=256, lr=3e-6, clip_norm=1.0)
 GRAD_RTOL = 1e-5
 STEP_LOSS_RTOL = 1e-3
+# Phase 7: the workflow at full width (config #2's seven scenes).
+WORKFLOW = dict(size="ref", height=480, width=640, scenes=7, frames=8, batch=2,
+                expert_iterations=3, gating_iterations=3, esac_iterations=4, stop_after=2,
+                hypotheses=256, eval_batch=4, limit=2, topk=2)
 
 
 def log(*parts) -> None:
@@ -285,6 +312,15 @@ PRIOR_LAUNCHES = {
     "fused_select": {"soft_inlier_scores": 0, "soft_inlier_select": 1},
     "pallas": {"soft_inlier_scores": 2, "soft_inlier_select": 0},
     "errmap": {"soft_inlier_scores": 0, "soft_inlier_select": 0},
+}
+# Phase 7's scripts under --scoring-impl pallas: one scoring launch per
+# train_esac step and per test_esac batch, dense and top-k alike (top-k
+# scores its k maps in the same single call); stages 1-2 launch nothing.
+WORKFLOW_LAUNCHES = {
+    "train_expert": {"soft_inlier_scores": 0, "soft_inlier_select": 0},  # per call
+    "train_gating": {"soft_inlier_scores": 0, "soft_inlier_select": 0},  # per call
+    "train_esac": {"soft_inlier_scores": 1, "soft_inlier_select": 0},    # per step
+    "test_esac": {"soft_inlier_scores": 1, "soft_inlier_select": 0},     # per batch
 }
 ROUTED_K = 2  # the routed serving checks' top-k (and K = M = 7)
 PRIOR_SLOTS = 4  # esac_tpu/serve/session.py SessionPolicy.prior_slots
@@ -1312,6 +1348,185 @@ def phase_training(dev, seed):
     return dict(functions=functions, runs=runs, first_step_rel_diff=rel)
 
 
+def _script(dev, label, module, argv, calls, timer=None):
+    """``module.main(argv)`` (with ``timer`` for the trainers) with the
+    launch counters set to 0 just before and read just after, its standard
+    output captured and logged.  Fails unless it returns 0 and launched
+    exactly ``WORKFLOW_LAUNCHES[script] x calls`` (nothing on the CPU).
+    Returns (output, wall seconds, launches, peak bytes)."""
+    import torch
+
+    name = module.__name__.rsplit(".", 1)[1]
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv) if timer is None else module.main(argv, timer=timer)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    for line in buf.getvalue().splitlines():
+        log(f"[workflow]   {line}")
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}")
+    want = ({k: n * calls for k, n in WORKFLOW_LAUNCHES[name].items()}
+            if dev.type == "cuda" else dict.fromkeys(KERNELS, 0))
+    if got != want:
+        raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
+    log(f"[workflow] {label}: {wall:.2f} s, launches {got}, "
+        f"peak {peak / 2**30:.2f} GiB")
+    return buf.getvalue(), wall, got, peak
+
+
+def _losses(text, what):
+    """Every loss a trainer printed ("iter ..." and "final ..." lines); fails
+    on none, or on one that is not finite."""
+    found = [float(m) for m in re.findall(
+        r"(?:coord L1|init L1|reproj px|CE|E\[pose loss\]) (\S+)", text)]
+    if not found or not np.isfinite(found).all():
+        raise AssertionError(f"{what}: printed losses {found}")
+    return found
+
+
+def _adam_steps(opt_state) -> set:
+    return {float(s["step"]) for s in opt_state["state"].values()}
+
+
+def _warm_ms(timers) -> float:
+    """Mean iteration time past each run's first (warm-up) iteration."""
+    warm = [t for timer in timers for t in timer.calls["iteration"][1:]]
+    return 1e3 * sum(warm) / len(warm)
+
+
+def phase_workflow(dev, seed, size=WORKFLOW):
+    """Phase 7 (module docstring): the workflow every user runs, through the
+    four scripts' main(argv) in a temporary directory."""
+    from esac_tpu_torch.cli import load_esac_scene
+    from esac_tpu_torch.scripts import test_esac, train_esac, train_expert, train_gating
+    from esac_tpu_torch.utils.checkpoint import load_checkpoint, load_train_state
+    from esac_tpu_torch.utils.profiling import StageTimer
+
+    where = [] if dev.type == "cuda" else ["--cpu"]
+    common = [*where, "--size", size["size"], "--res", str(size["height"]), str(size["width"]),
+              "--frames", str(size["frames"]), "--batch", str(size["batch"]),
+              "--seed", str(seed)]
+    scenes = [f"synth{m}" for m in range(size["scenes"])]
+    walls, peaks, launches, timers, stage_s = {}, {}, {}, {}, {}
+
+    def record(key, *args):
+        text, walls[key], launches[key], peaks[key] = _script(dev, key, *args)
+        if len(args) == 4:  # a trainer, with its timer
+            stage_s[key] = args[3].totals
+        return text
+
+    with tempfile.TemporaryDirectory(prefix="esac_workflow_") as tmp:
+        d = pathlib.Path(tmp)
+        experts = [str(d / f"expert_{s}") for s in scenes]
+        timers["train_expert"] = []
+        for s, out in zip(scenes, experts):
+            timers["train_expert"].append(StageTimer())
+            text = record(f"train_expert {s}", train_expert,
+                          [s, *common, "--iterations", str(size["expert_iterations"]),
+                           "--output", out], 1, timers["train_expert"][-1])
+            _losses(text, f"train_expert {s}")
+            _, _, cfg, it = load_train_state(out)
+            if it != size["expert_iterations"] or not np.isfinite(cfg["final_loss"]):
+                raise AssertionError(f"{out}: iteration {it}, final loss {cfg['final_loss']}")
+        gating = str(d / "gating")
+        timers["train_gating"] = [StageTimer()]
+        _losses(record("train_gating", train_gating,
+                       [*scenes, *common, "--iterations", str(size["gating_iterations"]),
+                        "--output", gating], 1, timers["train_gating"][0]), "train_gating")
+        if load_train_state(gating)[3] != size["gating_iterations"]:
+            raise AssertionError(f"{gating}: wrong iteration")
+        # The stage-1/2 checkpoints reload into their modules (strict).
+        load_esac_scene(experts, gating, 1.0, (0.0, 0.0), dev)
+
+        esac = str(d / "esac")
+        stage3 = [*scenes, *common, "--iterations", str(size["esac_iterations"]),
+                  "--hypotheses", str(size["hypotheses"]), "--scoring-impl", "pallas",
+                  "--experts", *experts, "--gating", gating, "--output", esac]
+        timers["train_esac"] = [StageTimer(), StageTimer()]
+        stop = size["stop_after"]
+        _losses(record("train_esac stop", train_esac, stage3 + ["--stop-after", str(stop)], stop,
+                       timers["train_esac"][0]), "train_esac --stop-after")
+        _, opt_state, _, it = load_train_state(f"{esac}_state")
+        if it != stop or _adam_steps(opt_state) != {float(stop)}:
+            raise AssertionError(f"stopped state: iteration {it}, Adam steps "
+                                 f"{_adam_steps(opt_state)}, expected {stop}")
+        rest = size["esac_iterations"] - stop
+        text = record("train_esac resume", train_esac, stage3 + ["--resume"], rest,
+                      timers["train_esac"][1])
+        if f"resumed {esac}_state at iteration {stop}" not in text:
+            raise AssertionError(f"the resumed run did not start at iteration {stop}")
+        losses = _losses(text, "train_esac --resume")
+        t0 = time.perf_counter()
+        _, opt_state, _, it = load_train_state(f"{esac}_state")
+        state_load_s = time.perf_counter() - t0
+        state_bytes = sum(f.stat().st_size for f in pathlib.Path(f"{esac}_state").iterdir())
+        # A fresh optimizer would count `rest` steps: the state came back.
+        if it != size["esac_iterations"] or _adam_steps(opt_state) != {float(it)}:
+            raise AssertionError(f"resumed state: iteration {it}, Adam steps "
+                                 f"{_adam_steps(opt_state)}")
+        final = ([f"{esac}_expert{m}" for m in range(len(scenes))], f"{esac}_gating")
+        for ck in final[0] + [final[1]]:
+            if not load_checkpoint(ck)[1].get("e2e"):
+                raise AssertionError(f"{ck}: not a stage-3 checkpoint")
+        load_esac_scene(*final, 1.0, (0.0, 0.0), dev)
+
+        n_frames = size["limit"] * len(scenes)
+        batches = -(-n_frames // size["eval_batch"])
+        evals = {}
+        for mode, extra in (("dense", []), (f"topk{size['topk']}", ["--topk", str(size["topk"])])):
+            path = d / f"eval_{mode}.json"
+            record(f"test_esac {mode}", test_esac,
+                   [*scenes, *where, "--size", size["size"], "--res", str(size["height"]),
+                    str(size["width"]), "--frames", str(size["frames"]), "--hypotheses",
+                    str(size["hypotheses"]), "--scoring-impl", "pallas", "--eval-batch",
+                    str(size["eval_batch"]), "--limit", str(size["limit"]),
+                    "--experts", *final[0], "--gating", final[1], "--json", str(path),
+                    *extra], batches)
+            rec = json.loads(path.read_text())
+            if (tuple(rec) != test_esac.JSON_KEYS
+                    or tuple(rec["per_frame"]) != test_esac.PER_FRAME_KEYS):
+                raise AssertionError(f"test_esac {mode}: JSON keys {list(rec)}")
+            if rec["frames"] != n_frames or not all(
+                    np.isfinite(rec["per_frame"][k]).all()
+                    for k in ("rot_err_deg", "trans_err_cm")):
+                raise AssertionError(f"test_esac {mode}: {rec['frames']} frames, errors "
+                                     f"{rec['per_frame']}")
+            evals[mode] = rec
+
+    totals = {k: sum(n[k] for n in launches.values()) for k in KERNELS}
+    result = dict(
+        script_s=walls, stage_s=stage_s,
+        iteration_ms_warm={name: _warm_ms(ts) for name, ts in timers.items()},
+        frame_ms={mode: rec["median_ms_per_frame"] for mode, rec in evals.items()},
+        hyploop_frame_ms={mode: rec["median_hyploop_ms_per_frame"]
+                          for mode, rec in evals.items()},
+        peak_gib={k: v / 2**30 for k, v in peaks.items()},
+        launches=launches, launch_totals=totals, final_esac_loss=losses[-1],
+        esac_state_bytes=state_bytes, esac_state_load_s=state_load_s,
+        accuracy={mode: {k: rec[k] for k in ("pct_5cm5deg", "expert_accuracy_pct",
+                                             "gating_top1_pct", "evaluated_recall_pct")}
+                  for mode, rec in evals.items()},
+        eval_batches=batches)
+    log(f"[workflow] {len(scenes)} scenes x {size['frames']} frames at {size['width']}x"
+        f"{size['height']}, --size {size['size']}: warm ms/iteration "
+        + ", ".join(f"{k} {v:.1f}" for k, v in result["iteration_ms_warm"].items())
+        + f"; ms/frame {result['frame_ms']}; script s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f"; launches {totals}; stage-3 train state {state_bytes / 2**20:.0f} MiB on disk, "
+        f"read in {state_load_s:.2f} s; stage 3 stop / resume s by stage "
+        f"{stage_s['train_esac stop']} / {stage_s['train_esac resume']}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1330,6 +1545,7 @@ def main(argv=None) -> int:
         phase_recovery(dev, args.seed)
         serving = phase_serving(dev, args.seed)
         training = phase_training(dev, args.seed)
+        workflow = phase_workflow(dev, args.seed)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -1356,6 +1572,7 @@ def main(argv=None) -> int:
             "bound_by": k["bound"][short]["bound_by"], "library_ms": None,
             "training_launches": train_launches[name],
             "routed_launches": routed_launches[name], "prior_launches": prior_launches[name],
+            "workflow_launches": workflow["launch_totals"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -1375,7 +1592,8 @@ def main(argv=None) -> int:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
-                                       kernels=kernels, serving=serving, training=training),
+                                       kernels=kernels, serving=serving, training=training,
+                                       workflow=workflow),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -1390,6 +1608,7 @@ def main(argv=None) -> int:
         "functions_forward_max_abs_err": training["functions"]["err_forward"],
         "functions_max_rel_err": {"scores": training["functions"]["err_scores"],
                                   "select": training["functions"]["err_select"]}}}))
+    print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

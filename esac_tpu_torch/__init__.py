@@ -25,4 +25,10 @@ the kernels through their ``torch.autograd.Function``s
 (``ransac.fused_scoring``), and ``train`` holds the three stages' step
 factories (``make_expert_train_step``, ``make_gating_train_step``,
 ``make_dsac_train_step``, ``make_esac_train_step``).
+
+Workflow: ``data`` (synthetic and on-disk scenes, augmentation),
+``utils.checkpoint`` (torch checkpoints, crash-atomic train states),
+``utils.profiling``, ``cli`` and ``scripts`` (``train_expert``,
+``train_gating``, ``train_esac``, ``test_esac``, ``convert_checkpoint``;
+each ``main(argv)``, run as ``python -m esac_tpu_torch.scripts.<name>``).
 """

@@ -1,1 +1,3 @@
-"""Camera constants and the output-cell grid."""
+"""Scenes: the synthetic box room (``synthetic``), the on-disk dataset
+layout and synthetic scenes as datasets (``datasets``), and training-time
+augmentation (``augment``)."""

@@ -59,3 +59,16 @@ def pose_errors(
     cam_center = -torch.einsum("...ij,...i->...j", R, t)
     cam_center_gt = -torch.einsum("...ij,...i->...j", R_gt, t_gt)
     return rot_err, safe_norm(cam_center - cam_center_gt)
+
+
+def backproject_at_depth(R: torch.Tensor, t: torch.Tensor, pixels: torch.Tensor, f, c,
+                         depth) -> torch.Tensor:
+    """Scene points seen at a constant camera-frame ``depth`` (meters): the
+    heuristic stage-1 targets for scenes without depth GT (counterpart of
+    ``backproject_at_depth``).  R (..., 3, 3), t (..., 3) scene -> camera;
+    pixels (N, 2); f scalar or of the pose's batch shape; c (2,).  Returns
+    (..., N, 3): X = R^T (Y - t) with Y = depth * ray(pixel)."""
+    f = torch.as_tensor(f, dtype=pixels.dtype, device=pixels.device)
+    xy = (pixels - c) / f[..., None, None]
+    Y = torch.cat([xy * depth, torch.full_like(xy[..., :1], depth)], dim=-1)
+    return hmm(Y - t[..., None, :], R)  # row-vector form of R^T (Y - t)

@@ -8,6 +8,12 @@ Flax numbers ``Conv_k`` / ``Dense_k`` by call order, which is the order of
 included) and of ``GatingNet``'s layers.  Nothing here imports flax or
 orbax: the caller hands over the tree (``load_checkpoint`` output, or a
 ``load_scene_params`` tree converted to numpy).
+
+:func:`load_reference_expert` / :func:`load_reference_gating` load the
+original ESAC's ``torch.save(net.state_dict())`` files straight into the
+port's modules (the counterpart of ``torch_state_dict_to_flax``): both
+layouts are PyTorch's, so weights copy as they are, matched by layer order
+(the reference nets are plain sequential stacks; names need not match).
 """
 
 from __future__ import annotations
@@ -97,3 +103,52 @@ def load_scene(scene: dict, tree: dict) -> dict:
             raise ValueError(f"{key}: shape {tuple(val.shape)} != {tuple(scene[key].shape)}")
         scene[key] = val
     return scene
+
+
+def _state_dict_pairs(state_dict) -> list[tuple[np.ndarray, np.ndarray | None]]:
+    """(weight, bias or None) in order of appearance; raises on an entry
+    that is neither, or a bias that does not follow its weight."""
+    pairs: list[tuple[np.ndarray, np.ndarray | None]] = []
+    pending_w, pending_name = None, ""
+    for name, value in state_dict.items():
+        arr = np.asarray(value.detach().cpu() if hasattr(value, "detach") else value)
+        if name.endswith("weight"):
+            if pending_w is not None:
+                pairs.append((pending_w, None))
+            pending_w, pending_name = arr, name
+        elif name.endswith("bias"):
+            if pending_w is None or name[: -len("bias")] != pending_name[: -len("weight")]:
+                raise ValueError(f"bias {name} does not follow its weight")
+            pairs.append((pending_w, arr))
+            pending_w = None
+        else:
+            raise ValueError(f"unsupported torch entry: {name}")
+    if pending_w is not None:
+        pairs.append((pending_w, None))
+    return pairs
+
+
+def _load_in_order(layers: list[nn.Module], state_dict) -> None:
+    pairs = _state_dict_pairs(state_dict)
+    if len(pairs) != len(layers):
+        raise ValueError(f"layer count mismatch: torch has {len(pairs)}, "
+                         f"module has {len(layers)}")
+    for k, (layer, (w, b)) in enumerate(zip(layers, pairs)):
+        _copy(layer.weight, w, f"layer {k}")
+        if b is not None:
+            _copy(layer.bias, b, f"layer {k} bias")
+
+
+def load_reference_expert(net: ExpertNet, state_dict) -> ExpertNet:
+    """Fill ``net`` from an original-ESAC expert state dict, layer k onto
+    ``net.layers_in_flax_order()[k]``.  Raises ValueError on a layer-count
+    or shape mismatch (architecture drift)."""
+    _load_in_order(net.layers_in_flax_order(), state_dict)
+    return net
+
+
+def load_reference_gating(net: GatingNet, state_dict) -> GatingNet:
+    """Fill ``net`` from an original-ESAC gating state dict: its convs,
+    then the two dense layers."""
+    _load_in_order(list(net.convs) + [net.dense0, net.dense1], state_dict)
+    return net

@@ -1,1 +1,2 @@
-"""Numerical and device helpers shared by the port's modules."""
+"""Numerical and device helpers, checkpoints (``checkpoint``) and fenced
+timers (``profiling``) shared by the port's modules."""
