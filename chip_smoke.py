@@ -96,7 +96,35 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  into its modules, the resumed run starts at iteration 2 with
                  Adam's step count 2 and ends at 4, every printed loss is
                  finite, the JSON has every key of the JAX script's, and the
-                 kernels launch exactly as WORKFLOW_LAUNCHES says.
+                 kernels launch exactly as WORKFLOW_LAUNCHES says;
+8. server     -- the serving front end (esac_tpu_torch.serve.dispatcher,
+                 esac_tpu_torch.registry.serving.SceneRegistry) on phase 5's
+                 preset under "fused_select": four random-init scene versions
+                 (a v1, a v2, b v1 and a v3 with NaN expert weights) written
+                 as registry checkpoints in a temporary directory, checksummed
+                 (compute_entry_checksums), served by
+                 SceneRegistry(manifest, budget of 1.5 scenes' bytes)
+                 .dispatcher(cfg) after prewarm_programs.  (1) infer_many of
+                 21 frames follows plan_dispatches and each frame is bit-equal
+                 to the registry's bucket function on the same padded batch;
+                 (2) 24 infer_one calls from 8 threads are all served, finite,
+                 in fewer dispatches than requests, the outcome counts summing
+                 to offered; (3) the closed-loop rate (infer_many of 64 frames),
+                 then 200 Poisson requests at half of it through
+                 run_open_loop (every one served; p50 / p99 / goodput), then
+                 an overload drill of 100 requests at twice it with an
+                 SLOPolicy (queue of 16, 250 ms deadline): sheds and expiries
+                 typed, outcomes summing to offered, done within its settle
+                 time; (4) a promoted to v2 while requests run: results after
+                 it bit-equal to v2's bucket function, batch signatures
+                 unchanged; (5) serving b evicts a (torch.cuda.memory_allocated
+                 drops by at least 90% of a's bytes) and a reloads bit-equal;
+                 (6) route_k = 2 through the registry bit-equal to
+                 make_routed_scene_bucket_fn; (7) promoting the NaN version
+                 trips its breaker from the deferred probes and rolls back to
+                 v2, served bit-equal; (8) every check's select launches equal
+                 the dispatches the dispatcher's counters record, no score
+                 launch.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -109,7 +137,8 @@ reference); a training step counts as one call (its backward launches
 nothing).
 
 Before the last line it prints one JSON line {"training": {...}}, one JSON
-line {"workflow": {...}}, one JSON line {"kernels": [...]} and the
+line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
+{"kernels": [...]} and the
 nvidia-smi name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -153,11 +182,18 @@ SFU_PER_PAIR = 5
 KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "serving": (4, 7, 256, 480, 640),
     "frames16": (16, 7, 256, 480, 640),
+    # Phase 8's closed and open loops fill the largest frame bucket.
+    "frames64": (64, 7, 256, 480, 640),
     "frames1": (1, 7, 256, 480, 640),
     "train": (2, 7, 256, 480, 640),
     "ragged": (3, 1, 40, 120, 160),
     # Routed K = 2 of M = 7: 4 frames x 2 maps x 7 * 256 // 2 hypotheses.
     "routed_k2": (4, 2, 896, 480, 640),
+    # The other routed K = 2 buckets phase 8's prewarm_programs runs (a
+    # 1-frame bucket stages 2 lanes).
+    "routed_k2_lanes2": (2, 2, 896, 480, 640),
+    "routed_k2_frames16": (16, 2, 896, 480, 640),
+    "routed_k2_frames64": (64, 2, 896, 480, 640),
     # Phase 7's `test_esac --topk 2 --eval-batch 4`: the 4 x 2 gathered maps
     # at the configured 256 hypotheses.
     "eval_topk2": (4, 2, 256, 480, 640),
@@ -1527,6 +1563,400 @@ def phase_workflow(dev, seed, size=WORKFLOW):
     return result
 
 
+# Phase 8: the server.  Request counts of its checks (the overload drill's
+# deadline in ms); SERVER_SEED offsets its frames' seeds from phase 5's.
+SERVER = dict(many=21, threads=8, per_thread=3, closed_loop=64, open_loop=200,
+              open_load=0.5, overload=100, overload_load=2.0, overload_queue=16,
+              deadline_ms=250.0, swap_requests=12, compare=4, nan_frames=16)
+SERVER_SEED = 50_000
+
+
+def _launches(fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: (result, {kernel: launches})."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def _dispatches(disp) -> int:
+    return sum(disp.dispatch_totals().values())
+
+
+def _same_rows(got: list, ref: dict, lo: int, what: str):
+    """Each frame's host result bit-equal to its row of a bucket function's
+    output on the same padded batch."""
+    for j, row in enumerate(got):
+        for key, v in ref.items():
+            if not np.array_equal(row[key], v[lo + j].cpu().numpy()):
+                raise AssertionError(f"{what}: frame {j} {key} differs from the bucket "
+                                     "function on the same batch")
+
+
+def _direct(reg, entry, frames, buckets, route_k=None):
+    """The registry's own bucket function on each planned, padded batch of
+    ``frames``: (rows, [(bucket, n_valid)])."""
+    from esac_tpu_torch.serve.batching import pad_batch, pick_bucket, plan_dispatches, stack_frames
+
+    fn, params = reg._fn_for(entry, route_k), reg.cache.get(entry)
+    rows, plan, lo = [], [], 0
+    for n in plan_dispatches(len(frames), buckets):
+        bucket = pick_bucket(n, buckets)
+        out = fn(params, pad_batch(stack_frames(frames[lo:lo + n]), bucket)[0])
+        rows.append((lo, n, out))
+        plan.append((bucket, n))
+        lo += n
+    return rows, plan
+
+
+def _hold(reg, entry, got, frames, buckets, what, route_k=None):
+    rows, plan = _direct(reg, entry, frames, buckets, route_k)
+    for lo, n, out in rows:
+        _same_rows(got[lo:lo + n], {k: v[:n] for k, v in out.items()}, 0, what)
+    return plan
+
+
+def _expect_launches(dev, counts, dispatches, what):
+    """One select launch per "fused_select" dispatch, no score launch (none
+    on the CPU)."""
+    want = {"soft_inlier_scores": 0,
+            "soft_inlier_select": dispatches if dev.type == "cuda" else 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} for "
+                             f"{dispatches} dispatches")
+
+
+def _stage_ms(hist, stage) -> dict:
+    """A span stage's count, mean, p50, p99 and max in ms."""
+    sm = hist.summary(quantiles=(0.5, 0.99), stage=stage)
+    return dict(count=sm["count"], mean=1e3 * sm["sum"] / max(1, sm["count"]),
+                p50=1e3 * sm["p50"], p99=1e3 * sm["p99"],
+                max=None if sm["max"] is None else 1e3 * sm["max"])
+
+
+def _all_served(res, what):
+    if res["outcomes"]["served"] != res["offered"]:
+        raise AssertionError(f"{what}: outcomes {res['outcomes']}")
+
+
+def _finite_rows(rows, what):
+    for r in rows:
+        if not all(np.isfinite(r[k]).all() for k in ("rvec", "tvec")):
+            raise AssertionError(f"{what}: a non-finite pose")
+
+
+def phase_server(dev, seed, preset=None, size=SERVER):
+    """Phase 8 (module docstring): the serving front end on the card -- a
+    manifest of three random-init scene versions (and a NaN one) in
+    registry checkpoints, SceneRegistry(...).dispatcher(cfg), requests."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.registry.cache import tree_nbytes
+    from esac_tpu_torch.registry.health import HealthPolicy
+    from esac_tpu_torch.registry.manifest import SceneEntry, SceneManifest
+    from esac_tpu_torch.registry.serving import (
+        SceneRegistry,
+        compute_entry_checksums,
+        init_scene_params,
+        load_scene_params,
+        save_scene_params,
+    )
+    from esac_tpu_torch.serve.batching import plan_dispatches
+    from esac_tpu_torch.serve.loadgen import poisson_arrivals, run_open_loop
+    from esac_tpu_torch.serve.slo import SLOPolicy
+
+    t_phase = time.perf_counter()
+    preset = preset or _serving_preset()
+    scene_cfg = RansacConfig(scoring_impl="fused_select")
+    cfg = RansacConfig()
+    buckets = cfg.frame_buckets
+    rng = np.random.default_rng(seed + 8)
+    images = rng.uniform(0, 1, (size["closed_loop"], preset.height, preset.width, 3)) \
+        .astype(np.float32)
+
+    def frames(n, first=0):
+        return [{"image": images[(first + i) % len(images)],
+                 "seed": np.int64(SERVER_SEED + first + i)} for i in range(n)]
+
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def served(fn):
+        out, n = _launches(fn)
+        for k, v in n.items():
+            launches[k] += v
+        return out, n
+
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="esac_server_") as tmp:
+        t0 = time.perf_counter()
+        root, entries = pathlib.Path(tmp), {}
+        for (name, v, s, nan) in (("a", 1, 1, False), ("a", 2, 2, False), ("b", 1, 3, False),
+                                  ("a", 3, 4, True)):
+            params = init_scene_params(preset, seed=seed + s, device=dev)
+            if nan:
+                with torch.no_grad():
+                    for p_ in params["expert"].parameters():
+                        p_.fill_(float("nan"))
+            d = root / f"{name}{v}"
+            save_scene_params(params, preset, d / "expert", d / "gating")
+            del params
+            entries[(name, v)] = compute_entry_checksums(SceneEntry(
+                scene_id=name, version=v, expert_ckpt=str(d / "expert"),
+                gating_ckpt=str(d / "gating"), preset=preset, ransac=scene_cfg))
+        manifest = SceneManifest()
+        for key in (("a", 1), ("b", 1), ("a", 2), ("a", 3)):
+            manifest.add(entries[key], activate=False)
+        scene_bytes = tree_nbytes(load_scene_params(entries[("a", 1)]))
+        budget = int(1.5 * scene_bytes)
+        reg = SceneRegistry(manifest, budget_bytes=budget, device=dev,
+                            health=HealthPolicy())
+        signatures = reg.prewarm_programs("a", buckets, route_ks=(None, ROUTED_K))
+        sync(dev)
+        result["setup_s"] = time.perf_counter() - t0
+        log(f"[server] 4 scene versions written, checksummed and the registry prewarmed in "
+            f"{result['setup_s']:.1f} s; one scene {scene_bytes} bytes (tree_nbytes), cache "
+            f"budget {budget} bytes; {signatures} batch signatures")
+        # Traced: each request's span chain (admitted -> coalesced -> staged
+        # -> dispatched -> device -> sliced -> served) lands in the
+        # serve_stage_seconds histogram; the stamps reuse the path's own
+        # clock reads and its one synchronization.
+        # warm_frame: the staging pools of every bucket exist before the
+        # first request, in this thread and in the worker.
+        disp = reg.dispatcher(cfg, start_worker=False, trace=True, warm_frame=frames(1)[0])
+        stage_hist = disp.obs.get("serve_stage_seconds")
+
+        # 1. the dispatcher adds nothing to the numbers
+        n0 = _dispatches(disp)
+        many_frames = frames(size["many"])
+        got, counts = served(lambda: disp.infer_many(many_frames, scene="a"))
+        plan = [(b, n) for b, n in list(disp.dispatch_log)[-len(plan_dispatches(
+            size["many"], buckets)):]]
+        _expect_launches(dev, counts, _dispatches(disp) - n0, "check 1")
+        want_plan = _hold(reg, manifest.resolve("a"), got, many_frames, buckets,
+                          "check 1 (infer_many)")
+        if plan != want_plan:
+            raise AssertionError(f"check 1: dispatches {plan} != plan {want_plan}")
+        _finite_rows(got, "check 1")
+        log(f"[server] check 1: infer_many of {size['many']} frames rode {plan}, each frame "
+            "bit-equal to the bucket function on the same padded batch")
+
+        # 2. coalescing under concurrent requests
+        disp.start()
+        n0, outs, errors = _dispatches(disp), [], []
+
+        def client(t):
+            try:
+                for i in range(size["per_thread"]):
+                    outs.append(disp.infer_one(frames(1, 100 + t * 10 + i)[0], scene="a",
+                                               timeout=120.0))
+            except Exception as e:  # noqa: BLE001 -- reported below, then the run fails
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(size["threads"])]
+        _, counts = served(lambda: [t.start() for t in threads]
+                           + [t.join(180.0) for t in threads])
+        n_req = size["threads"] * size["per_thread"]
+        n_disp = _dispatches(disp) - n0
+        if errors or any(t.is_alive() for t in threads) or len(outs) != n_req:
+            raise AssertionError(f"check 2: {len(outs)} of {n_req} served, errors {errors}")
+        _finite_rows(outs, "check 2")
+        totals = disp.slo_totals()
+        if not n_disp < n_req or sum(totals[o] for o in ("served", "shed", "expired",
+                                                         "degraded", "failed", "pending")) \
+                != totals["offered"]:
+            raise AssertionError(f"check 2: {n_disp} dispatches for {n_req} requests, "
+                                 f"totals {totals}")
+        _expect_launches(dev, counts, n_disp, "check 2")
+        result["concurrent"] = dict(requests=n_req, dispatches=n_disp,
+                                    buckets=list(disp.dispatch_log)[-n_disp:])
+        log(f"[server] check 2: {n_req} requests from {size['threads']} threads served in "
+            f"{n_disp} dispatches {result['concurrent']['buckets']}")
+
+        # 3. open-loop traffic
+        closed = frames(size["closed_loop"], 500)
+        t0 = time.perf_counter()
+        _, counts = served(lambda: disp.infer_many(closed, scene="a"))
+        fps = size["closed_loop"] / (time.perf_counter() - t0)
+
+        def request(i):
+            return frames(1, 1000 + i)[0], "a", None
+
+        arrivals = poisson_arrivals(size["open_load"] * fps, size["open_loop"], seed=seed)
+        n0 = _dispatches(disp)
+        stage_hist.reset()
+        res, counts = served(lambda: run_open_loop(disp, request, arrivals, settle_s=120.0))
+        _all_served(res, "check 3 open loop")
+        _expect_launches(dev, counts, _dispatches(disp) - n0, "check 3")
+        open_loop = {k: res[k] for k in ("offered", "offered_rps_target",
+                                         "offered_rps_achieved", "served_rps", "p50_ms",
+                                         "p99_ms", "span_s", "outcomes", "gc")}
+        open_loop["dispatches"] = _dispatches(disp) - n0
+        open_loop["buckets"] = list(disp.dispatch_log)[-open_loop["dispatches"]:]
+        # Per-request stage durations (ms): where a request's latency went.
+        open_loop["stages_ms"] = {stage: _stage_ms(stage_hist, stage) for stage in (
+            "coalesced", "staged", "dispatched", "device", "sliced", "served")}
+        log(f"[server] check 3: closed loop {fps:.1f} frames/s ({size['closed_loop']} "
+            f"frames in one dispatch); open loop at {size['open_load']:.0%} of it: "
+            f"{res['offered']} Poisson requests at {res['offered_rps_achieved']} req/s, "
+            f"p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, goodput {res['served_rps']} "
+            f"req/s in {open_loop['dispatches']} dispatches {open_loop['buckets']}")
+        log("[server] check 3: open-loop stage means (ms): " + ", ".join(
+            f"{k} {v['mean']:.2f}" for k, v in open_loop["stages_ms"].items()))
+        drill = reg.dispatcher(dataclasses.replace(cfg, serve_queue_depth=size["overload_queue"]),
+                               slo=SLOPolicy(deadline_ms=size["deadline_ms"],
+                                             watchdog_ms=30_000.0),
+                               warm_frame=frames(1)[0])
+        drill_arrivals = poisson_arrivals(size["overload_load"] * fps, size["overload"],
+                                          seed=seed + 1)
+        try:
+            settle = 60.0
+            t0 = time.perf_counter()
+            res, counts = served(lambda: run_open_loop(
+                drill, request, drill_arrivals, deadline_ms=size["deadline_ms"],
+                settle_s=settle))
+            drill_s = time.perf_counter() - t0
+        finally:
+            drill.close()
+        t = drill.slo_totals()
+        kinds = {o: sorted({e for e, oo in zip(res["per_request_error_types"],
+                                               res["per_request_outcomes"]) if oo == o})
+                 for o in ("shed", "expired", "failed")}
+        if (res["outcomes"]["lost"] or sum(res["outcomes"][o] for o in (
+                "served", "degraded", "shed", "expired", "failed")) != res["offered"]
+                or any(res["outcomes"][o] != t[o] for o in ("served", "shed", "expired"))
+                or res["outcomes"]["failed"] or t["pending"]
+                or not set(kinds["shed"]) <= {"ShedError"}
+                or not set(kinds["expired"]) <= {"DeadlineExceededError"}
+                or drill_s > drill_arrivals[-1] + settle):
+            raise AssertionError(f"check 3 overload drill: {res['outcomes']}, totals {t}, "
+                                 f"error types {kinds}, {drill_s:.1f} s")
+        overload = {k: res[k] for k in ("offered", "offered_rps_achieved", "served_rps",
+                                         "p50_ms", "p99_ms", "outcomes")}
+        overload.update(seconds=drill_s, dispatches=_dispatches(drill))
+        log(f"[server] check 3: overload drill at {size['overload_load']:.0%}: {res['offered']} "
+            f"requests at {res['offered_rps_achieved']} req/s, outcomes {res['outcomes']}, "
+            f"served p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms ({drill_s:.1f} s)")
+
+        # 4. hot swap while traffic runs
+        n0, swap_out, swap_err = _dispatches(disp), [], []
+        first = threading.Event()
+
+        def traffic():
+            try:
+                for i in range(size["swap_requests"]):
+                    swap_out.append(disp.infer_one(frames(1, 2000 + i)[0], scene="a",
+                                                   timeout=120.0))
+                    first.set()
+            except Exception as e:  # noqa: BLE001 -- reported below, then the run fails
+                swap_err.append(repr(e))
+                first.set()
+
+        before = reg.compile_cache_size()
+        cmp_frames = frames(size["compare"], 3000)
+
+        def swap():
+            th = threading.Thread(target=traffic)
+            th.start()
+            first.wait(120.0)
+            reg.promote("a", 2)
+            th.join(180.0)
+            if th.is_alive():
+                raise AssertionError("check 4: traffic did not finish")
+            return disp.infer_many(cmp_frames, scene="a")
+
+        post, counts = served(swap)
+        if swap_err or len(swap_out) != size["swap_requests"]:
+            raise AssertionError(f"check 4: {len(swap_out)} served, errors {swap_err}")
+        _finite_rows(swap_out + post, "check 4")
+        _expect_launches(dev, counts, _dispatches(disp) - n0, "check 4")
+        entry_a2 = manifest.resolve("a")
+        if entry_a2.version != 2:
+            raise AssertionError(f"check 4: scene a serves v{entry_a2.version}")
+        _hold(reg, entry_a2, post, cmp_frames, buckets, "check 4 (after the swap)")
+        if reg.compile_cache_size() != before:
+            raise AssertionError(f"check 4: signatures {before} -> {reg.compile_cache_size()}")
+        log(f"[server] check 4: promoted a to v2 under traffic ({size['swap_requests']} "
+            f"requests); after it, results bit-equal to v2's bucket function; signatures "
+            f"{before} before and after")
+
+        # 5. the weight cache in device memory
+        a_bytes = tree_nbytes(reg.cache.get(entry_a2))
+        sync(dev)
+        mem = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        _, counts = served(lambda: disp.infer_many(frames(1, 4000), scene="b"))
+        b_bytes = tree_nbytes(reg.cache.get(manifest.resolve("b")))
+        sync(dev)
+        mem_after = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+        if ("a", 2) not in reg.cache.evictions or ("a", 2) in reg.cache:
+            raise AssertionError(f"check 5: evictions {list(reg.cache.evictions)}")
+        freed = None if mem is None else mem + b_bytes - mem_after
+        if freed is not None and freed < 0.9 * a_bytes:
+            raise AssertionError(f"check 5: serving b freed {freed} bytes, a holds {a_bytes}")
+        loads = reg.cache.stats()["disk_loads"]
+        again, counts = served(lambda: disp.infer_many(cmp_frames, scene="a"))
+        if reg.cache.stats()["disk_loads"] != loads + 1:
+            raise AssertionError("check 5: scene a was not reloaded")
+        for g, w in zip(again, post):
+            for key in w:
+                if not np.array_equal(g[key], w[key]):
+                    raise AssertionError(f"check 5: reloaded a's {key} differs")
+        result["cache"] = dict(scene_bytes=a_bytes, b_bytes=b_bytes, budget_bytes=budget,
+                               allocated_before=mem, allocated_after=mem_after,
+                               freed_bytes=freed, evictions=[list(k) for k in
+                                                             reg.cache.evictions],
+                               stats=reg.cache.stats())
+        log(f"[server] check 5: serving b evicted a v2 ({a_bytes} bytes); memory_allocated "
+            f"{mem} -> {mem_after} (freed {freed} bytes beyond b's {b_bytes}); a reloaded "
+            "bit-equal")
+
+        # 6. a routed lane
+        n0 = _dispatches(disp)
+        routed, counts = served(lambda: disp.infer_many(cmp_frames, scene="a",
+                                                        route_k=ROUTED_K))
+        _expect_launches(dev, counts, _dispatches(disp) - n0, "check 6")
+        _hold(reg, entry_a2, routed, cmp_frames, buckets, f"check 6 (route_k={ROUTED_K})",
+              route_k=ROUTED_K)
+        log(f"[server] check 6: route_k={ROUTED_K} through the registry bit-equal to "
+            "make_routed_scene_bucket_fn on the same batch")
+
+        # 7. health on the card
+        reg.promote("a", 3)
+        bad, _ = served(lambda: disp.infer_many(frames(size["nan_frames"], 5000), scene="a"))
+        if all(np.isfinite(r["rvec"]).all() for r in bad):
+            raise AssertionError("check 7: the NaN version served finite poses")
+        back, _ = served(lambda: disp.infer_many(cmp_frames, scene="a"))
+        events = [e["event"] for e in reg.health()["events"]]
+        if events != ["auto_rollback"] or manifest.active_version("a") != 2 \
+                or ("a", 3) in reg.cache:
+            raise AssertionError(f"check 7: events {events}, active "
+                                 f"v{manifest.active_version('a')}")
+        for g, w in zip(back, post):
+            for key in w:
+                if not np.array_equal(g[key], w[key]):
+                    raise AssertionError(f"check 7: after the rollback {key} differs from v2")
+        log(f"[server] check 7: the NaN version tripped its breaker from the deferred probes "
+            f"({size['nan_frames']} frames) and rolled back to v2; served bit-equal to v2")
+        disp.close()
+        totals = disp.slo_totals()
+        if totals["served"] != totals["offered"]:
+            raise AssertionError(f"a request outside the drill was not served: {totals}")
+        result.update(
+            closed_loop_fps=fps, open_loop=open_loop, overload=overload,
+            many_plan=plan, totals=totals, dispatch_totals={
+                f"{s}/{k}": n for (s, k), n in disp.dispatch_totals().items()},
+            signatures=reg.compile_cache_size(), launches=launches,
+            health=reg.health()["events"], seconds=time.perf_counter() - t_phase)
+    log(f"[server] 8 checks passed in {result['seconds']:.1f} s; launches {launches}")
+    return result
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1546,6 +1976,7 @@ def main(argv=None) -> int:
         serving = phase_serving(dev, args.seed)
         training = phase_training(dev, args.seed)
         workflow = phase_workflow(dev, args.seed)
+        server = phase_server(dev, args.seed)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -1573,6 +2004,7 @@ def main(argv=None) -> int:
             "training_launches": train_launches[name],
             "routed_launches": routed_launches[name], "prior_launches": prior_launches[name],
             "workflow_launches": workflow["launch_totals"][name],
+            "server_launches": server["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -1593,7 +2025,7 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
-                                       workflow=workflow),
+                                       workflow=workflow, server=server),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -1609,6 +2041,7 @@ def main(argv=None) -> int:
         "functions_max_rel_err": {"scores": training["functions"]["err_scores"],
                                   "select": training["functions"]["err_select"]}}}))
     print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
+    print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

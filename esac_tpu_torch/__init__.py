@@ -26,6 +26,15 @@ the kernels through their ``torch.autograd.Function``s
 factories (``make_expert_train_step``, ``make_gating_train_step``,
 ``make_dsac_train_step``, ``make_esac_train_step``).
 
+Serving front end: ``registry.serving.SceneRegistry`` (a versioned
+``registry.manifest.SceneManifest``, scenes in CUDA memory under a byte
+budget in ``registry.cache.DeviceWeightCache``, checksums, hot swap,
+canary and the ``registry.health`` breaker) and its ``dispatcher(cfg)``, a
+``serve.dispatcher.MicroBatchDispatcher`` that coalesces single-frame
+requests into frame buckets under ``serve.slo`` deadlines and admission
+control; ``serve.loadgen`` replays open-loop traffic and ``obs`` holds
+the counters, histograms and traces they publish.
+
 Workflow: ``data`` (synthetic and on-disk scenes, augmentation),
 ``utils.checkpoint`` (torch checkpoints, crash-atomic train states),
 ``utils.profiling``, ``cli`` and ``scripts`` (``train_expert``,

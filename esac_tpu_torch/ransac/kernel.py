@@ -48,7 +48,10 @@ from esac_tpu_torch.utils.precision import resolve_device
 
 
 def frame_generators(seeds, device) -> list[torch.Generator]:
-    """One seeded ``torch.Generator`` per frame, on ``device``."""
+    """One seeded ``torch.Generator`` per frame, on ``device``.  A seed
+    tensor on the card is read back once, not once per frame."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.tolist()
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 

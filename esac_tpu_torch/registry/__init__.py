@@ -1,1 +1,2 @@
-"""Scene presets and the scene-serving entry point."""
+"""Scene presets and manifest, the device weight cache, scene health and the
+scene registry that serves them."""

@@ -1,1 +1,2 @@
-"""Bucketed frame batching for the serving path."""
+"""The serving front end: bucketed batching and staging, the micro-batching
+dispatcher, the SLO layer and the open-loop load generator."""

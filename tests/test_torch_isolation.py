@@ -118,3 +118,43 @@ def test_config_and_presets_copies_equal_the_reference():
         RansacConfig(scoring_impl="bogus")
     assert EXPERT_PRESETS == J_EXPERT_PRESETS
     assert GATING_PRESETS == J_GATING_PRESETS
+
+
+def _defaults(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+def test_slo_and_health_policies_equal_the_reference():
+    from esac_tpu.registry.health import HealthPolicy as JHealthPolicy
+    from esac_tpu.serve.slo import SLOPolicy as JSLOPolicy
+    from esac_tpu_torch.registry.health import HealthPolicy
+    from esac_tpu_torch.serve.slo import SLOPolicy
+
+    assert _defaults(SLOPolicy) == _defaults(JSLOPolicy)
+    assert _defaults(HealthPolicy) == _defaults(JHealthPolicy)
+
+
+def _typed_errors(modules):
+    out = {}
+    for mod in modules:
+        for name, obj in vars(mod).items():
+            if isinstance(obj, type) and issubclass(obj, Exception) \
+                    and obj.__module__ == mod.__name__:
+                out[name] = (obj.wire_name, obj.retryable,
+                             sorted(b.__name__ for b in obj.__mro__ if b is not obj
+                                    and b.__module__.split(".")[0] != "builtins"))
+    return out
+
+
+def test_typed_errors_keep_the_reference_wire_names_and_retry_flags():
+    """Every typed error of the ported serving and registry modules has the
+    JAX package's wire_name, retryable flag and class tree."""
+    from esac_tpu.registry import health as j_health
+    from esac_tpu.registry import manifest as j_manifest
+    from esac_tpu.serve import slo as j_slo
+    from esac_tpu_torch.registry import health, manifest
+    from esac_tpu_torch.serve import slo
+
+    ours = _typed_errors([slo, health, manifest])
+    ref = _typed_errors([j_slo, j_health, j_manifest])
+    assert len(ours) == 12 and ours == ref
