@@ -14,7 +14,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  buckets (P = 112, P = 7), at the training shape of phase 6
                  (P = 14), at ragged shapes (H = 40, N = 300), at the routed
                  K = 2 shape (P = 4 frames x 2 maps, H = 896) and at the
-                 prior-slot shape (P = 28, H = 4 poses): scores
+                 prior-slot shape (P = 28, H = 4 poses), at the session
+                 lane's H = 32 (P = 7, 14, 28, 112): scores
                  allclose (rtol 1e-5, atol 1e-3: the same float32 formula
                  summed in another order), winner index equal where the top
                  two plain scores are further apart than that tolerance,
@@ -124,7 +125,49 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  trips its breaker from the deferred probes and rolls back to
                  v2, served bit-equal; (8) every check's select launches equal
                  the dispatches the dispatcher's counters record, no score
-                 launch.
+                 launch;
+9. fleet      -- the fleet tier on phase 8's preset ("fused_select"): three
+                 random-init scenes a, b, c (~302 MB each) in registry
+                 checkpoints; two replicas, each SceneRegistry(manifest,
+                 device budget of 1 scene, host_tier=HostWeightTier("bf16",
+                 3 payloads)) prewarmed at buckets 1/4/16 x n_hyps 256/32 x
+                 plain/4 prior slots, its serve function inside a
+                 FaultInjector, behind MicroBatchDispatcher(SLOPolicy) and a
+                 FleetRouter.  (a) 24 requests from 6 threads over a and b:
+                 all served, each scene has a home, affinity routes
+                 counted, every result bit-equal to its row of the recorded
+                 dispatch and every dispatch bit-equal to its replica's
+                 bucket function on the same batch, books summing to
+                 offered; (b) every injector armed alike so that only a's
+                 home stalls: the home is quarantined (wedge, typed), the
+                 request is served by the survivor inside its deadline,
+                 bit-equal to the survivor dispatched directly, counted
+                 once; after release_replica the home serves again; (c) a ->
+                 b -> c -> a on one replica: each demotion lands in the host
+                 tier and frees >= 0.9 of a scene of memory_allocated, the
+                 second a is a host hit with no disk load, the promoted
+                 weights are the bf16-rounded originals (EXACT_KEYS byte-
+                 exact), results bit-equal to a registry loaded from the
+                 bf16-rounded tree; disk cold load, host-tier promote and
+                 warm hit in ms; (d) a prefetcher on one replica and four b
+                 requests to each a: b is back on the card before each of
+                 its next demands (a device hit); issued / hits / wasted;
+                 (e) a SessionRouter over the FleetRouter streams two
+                 sessions of 12 frames: tracked frames on the n_hyps = 32
+                 lane with 4 prior slots, typed transitions, no new batch
+                 signature; then a SyntheticScene trajectory of 48 frames
+                 at full width (one good map, six junk) planned by
+                 SessionTable through esac_infer_prior at 256 / 32
+                 hypotheses beside a full-budget pass: tracked fraction,
+                 prior hits, median ms, pose errors; (f) RetrievalFront over
+                 a random-init retriever at 640x480 with a and b enrolled
+                 from rendered views, top_k 2, min_confidence 0: 8
+                 infer_image calls served, books summing to offered, no new
+                 retriever signature, each winner bit-equal to the frame
+                 dispatched to its scene; the retriever forward in ms.
+                 Every leg's select launches equal the serve calls that
+                 returned (the dispatches, and the stalled dispatch of (b),
+                 which runs once released); no score launch.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -138,7 +181,7 @@ nothing).
 
 Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
-{"kernels": [...]} and the
+{"fleet": {...}}, one JSON line {"kernels": [...]} and the
 nvidia-smi name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -199,6 +242,13 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "eval_topk2": (4, 2, 256, 480, 640),
     # A prior-slot batch: 4 frames x 7 maps x 4 prior poses (launch-bound).
     "prior": (4, 7, 4, 480, 640),
+    # Phase 9's tracked session lane at SessionPolicy.track_n_hyps = 32 (its
+    # prewarmed buckets; a 1-frame bucket stages 2 lanes) and the sequence
+    # leg's single tracked frame.
+    "session_lanes2": (2, 7, 32, 480, 640),
+    "session_frames4": (4, 7, 32, 480, 640),
+    "session_frames16": (16, 7, 32, 480, 640),
+    "session_frame1": (1, 7, 32, 480, 640),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
 # Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
@@ -1956,6 +2006,629 @@ def phase_server(dev, seed, preset=None, size=SERVER):
     return result
 
 
+# Phase 9: the fleet.  Request counts of its legs; FLEET_SEED offsets its
+# frames' seeds from phases 5 and 8.
+FLEET = dict(buckets=(1, 4, 16), requests=24, threads=6, watchdog_ms=2000.0,
+             prefetch_rounds=4, prefetch_share=0.8, session_frames=12,
+             track_loss_frac=1e-5, seq_frames=48, seq_full=256, image_requests=8,
+             enroll_frames=4)
+FLEET_SEED = 90_000
+TRACK_N_HYPS = 32  # esac_tpu/serve/session.py SessionPolicy.track_n_hyps
+
+
+class _Recorder:
+    """A replica's serve function with a count of the calls that returned
+    (each one launched the select kernel once) and, while ``log`` is a
+    list, every call's (scene, n_hyps, device batch, output)."""
+
+    def __init__(self, serve):
+        import threading
+
+        self._serve = serve
+        self._lock = threading.Lock()
+        self.calls = 0
+        self.log = None
+
+    def __call__(self, batch, scene, route_k=None, n_hyps=None):
+        out = self._serve(batch, scene, route_k, n_hyps)
+        with self._lock:
+            self.calls += 1
+            if self.log is not None:  # a copy: staged leaves may be reused buffers
+                self.log.append((scene, n_hyps, {k: v.clone() for k, v in batch.items()}, out))
+        return out
+
+
+def _wait_calls(recs, want, what, timeout_s=60.0):
+    """Until the replicas' serve calls that returned reach ``want`` (a
+    released stalled dispatch finishes on its own thread)."""
+    t_end = time.perf_counter() + timeout_s
+    while sum(r.calls for r in recs) < want:
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"{what}: {sum(r.calls for r in recs)} serve calls "
+                                 f"returned, expected {want}")
+        time.sleep(0.01)
+
+
+def _rows_of(log, results, seeds, what):
+    """Each result bit-equal to its row of the one recorded dispatch that
+    carried its seed (padding lanes repeat the last frame, so the first
+    occurrence is the frame's own row)."""
+    for seed, res in zip(seeds, results):
+        hits = [(out, batch["seed"].tolist().index(seed)) for _, _, batch, out in log
+                if seed in batch["seed"].tolist()]
+        if len(hits) != 1:
+            raise AssertionError(f"{what}: seed {seed} rode {len(hits)} dispatches")
+        out, j = hits[0]
+        for key in res:
+            if key in out and not np.array_equal(res[key], out[key][j].cpu().numpy()):
+                raise AssertionError(f"{what}: seed {seed} {key} differs from its dispatch row")
+
+
+def _redo(reg, log, what):
+    """Every recorded dispatch bit-equal to the replica registry's bucket
+    function on the same device batch."""
+    import torch
+
+    for scene, n_hyps, batch, out in log:
+        entry = reg.manifest.resolve(scene)
+        again = reg._fn_for(entry, None, n_hyps)(reg.cache.get(entry), batch)
+        for key, v in out.items():
+            if not torch.equal(v, again[key]):
+                raise AssertionError(f"{what}: {scene} dispatch {key} differs from the "
+                                     "bucket function on the same batch")
+
+
+def _cuda_mem(dev):
+    import torch
+
+    sync(dev)
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def _timed_get(dev, cache, entry):
+    t0 = time.perf_counter()
+    tree = cache.get(entry)
+    sync(dev)
+    return tree, (time.perf_counter() - t0) * 1e3
+
+
+def _sequence_leg(dev, seed, size):
+    """The session lane on a continuous trajectory at full width: one good
+    expert map and six junk maps per frame, planned by SessionTable, served
+    by esac_infer_prior at the full and the tracked budget; a full-budget
+    baseline pass on the same maps.  Returns (result, select calls)."""
+    import dataclasses
+
+    import torch
+
+    from esac_tpu_torch.data.datasets import SyntheticScene
+    from esac_tpu_torch.data.synthetic import output_pixel_grid
+    from esac_tpu_torch.geometry.camera import pose_errors
+    from esac_tpu_torch.geometry.rotations import rodrigues
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import esac_infer_prior
+    from esac_tpu_torch.ransac.kernel import frame_generators
+    from esac_tpu_torch.serve.session import SessionPolicy, SessionTable
+
+    height, width, M, F = size["height"], size["width"], 7, size["seq_frames"]
+    ds = SyntheticScene("synth0", split="trajectory", n_frames=F, height=height, width=width,
+                        coord_stride=8, device=dev)
+    pixels = output_pixel_grid(height, width, 8, device=dev)
+    N = pixels.shape[0]
+    rng = np.random.default_rng(seed + 20)
+    coords = []
+    for i in range(F):
+        gt = ds[i].coords_gt.reshape(N, 3).cpu().numpy()
+        good = gt + rng.normal(0.0, 0.01, gt.shape).astype(np.float32)
+        out = rng.random(N) < 0.25
+        good[out] = gt[rng.permutation(N)][out]
+        junk = [gt[rng.permutation(N)] + rng.normal(0.0, 0.05, gt.shape).astype(np.float32)
+                for _ in range(M - 1)]
+        coords.append(torch.as_tensor(np.stack([good] + junk), device=dev))
+    logits = torch.tensor([2.0] + [-2.0] * (M - 1), device=dev)
+    c = torch.tensor([width / 2.0, height / 2.0], device=dev)
+    full = RansacConfig(n_hyps=size["seq_full"], refine_iters=4, polish_iters=2,
+                        scoring_impl="fused_select")
+    track = dataclasses.replace(full, n_hyps=TRACK_N_HYPS)
+    policy = SessionPolicy(prior_slots=PRIOR_SLOTS, track_n_hyps=TRACK_N_HYPS,
+                           track_loss_frac=0.10, track_enter_frac=0.25, max_sessions=8)
+    none_rv, none_valid = np.zeros((PRIOR_SLOTS, 3), np.float32), np.zeros(PRIOR_SLOTS, bool)
+    calls = [0]
+
+    def run(i, p_rv, p_tv, p_valid, cfg):
+        t0 = time.perf_counter()
+        out = esac_infer_prior(frame_generators([FLEET_SEED + i], dev)[0], logits, coords[i],
+                               pixels, ds.focal, c, p_rv, p_tv, p_valid, cfg, device=dev)
+        sync(dev)
+        dt = (time.perf_counter() - t0) * 1e3
+        calls[0] += 1
+        r_err, t_err = pose_errors(rodrigues(out["rvec"]), out["tvec"],
+                                   rodrigues(ds[i].rvec), ds[i].tvec)
+        return out, dt, float(r_err), float(t_err)
+
+    for cfg in (full, track):  # warm both budgets off the timed loops
+        run(0, none_rv, none_rv, none_valid, cfg)
+    base = [run(i, none_rv, none_rv, none_valid, full) for i in range(F)]
+    table = SessionTable(policy)
+    table.open("seq", scene=None, full_n_hyps=full.n_hyps)
+    sess = []
+    for i in range(F):
+        _, _, _, p_rv, p_tv, p_valid, tracked = table.plan("seq")
+        out, dt, r_err, t_err = run(i, p_rv, p_tv, p_valid, track if tracked else full)
+        transition = table.observe("seq", out["rvec"].cpu().numpy(), out["tvec"].cpu().numpy(),
+                                   float(out["inlier_frac"]), tracked)
+        sess.append(dict(tracked=tracked, transition=transition, ms=dt, rot_deg=r_err,
+                         trans_m=t_err, prior_hit=bool(out["prior_hit"])))
+    t_idx = [i for i, s in enumerate(sess) if s["tracked"]]
+    if not t_idx:
+        raise AssertionError("sequence leg: no frame was tracked")
+
+    def med(xs):
+        return float(np.median(xs)) if xs else None
+
+    tracked_ms, full_ms = med([sess[i]["ms"] for i in t_idx]), med([b[1] for b in base])
+    result = dict(
+        frames=F, n_cells=int(N), full_n_hyps=full.n_hyps, track_n_hyps=TRACK_N_HYPS,
+        tracked_frames=len(t_idx), tracked_frac=len(t_idx) / F,
+        prior_hit_frac_tracked=float(np.mean([sess[i]["prior_hit"] for i in t_idx])),
+        tracked_ms_median=tracked_ms, full_ms_median=full_ms,
+        session_full_ms_median=med([s["ms"] for s in sess if not s["tracked"]]),
+        tracked_over_full=tracked_ms / full_ms,
+        tracked_median_rot_deg=med([sess[i]["rot_deg"] for i in t_idx]),
+        full_median_rot_deg=med([base[i][2] for i in t_idx]),
+        tracked_median_trans_m=med([sess[i]["trans_m"] for i in t_idx]),
+        full_median_trans_m=med([base[i][3] for i in t_idx]),
+        transitions={t: sum(s["transition"] == t for s in sess)
+                     for t in ("tracked", "lost", "cold")},
+        table=table.stats())
+    return result, calls[0]
+
+
+def phase_fleet(dev, seed, preset=None, size=FLEET):
+    """Phase 9 (module docstring): the fleet tier on the card -- two
+    replicas of phase 8's server behind a FleetRouter, host weight tiers,
+    the prefetcher, sessions and image-only requests."""
+    import threading
+
+    import torch
+
+    from esac_tpu_torch.data.datasets import SyntheticScene
+    from esac_tpu_torch.fleet import FleetPolicy, FleetRouter, Replica
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.registry.cache import tree_nbytes
+    from esac_tpu_torch.registry.hosttier import EXACT_KEYS, HostWeightTier, compress_tree
+    from esac_tpu_torch.registry.manifest import SceneEntry, SceneManifest
+    from esac_tpu_torch.registry.prefetch import PrefetchPolicy
+    from esac_tpu_torch.registry.serving import (
+        SceneRegistry,
+        init_scene_params,
+        load_scene_params,
+        save_scene_params,
+    )
+    from esac_tpu_torch.retrieval import (
+        RetrievalConfig,
+        RetrievalFront,
+        RetrievalPolicy,
+        SceneIndex,
+        build_retriever,
+        make_retrieval_fn,
+    )
+    from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher
+    from esac_tpu_torch.serve.session import SessionPolicy, SessionRouter
+    from esac_tpu_torch.serve.slo import FaultInjector, SLOPolicy
+
+    t_phase = time.perf_counter()
+    preset = preset or _serving_preset()
+    scene_cfg = RansacConfig(scoring_impl="fused_select")
+    cfg = RansacConfig(frame_buckets=size["buckets"])
+    rng = np.random.default_rng(seed + 9)
+    images = rng.uniform(0, 1, (16, preset.height, preset.width, 3)).astype(np.float32)
+    counter = [FLEET_SEED]
+
+    def frames(n):
+        out = []
+        for _ in range(n):
+            out.append({"image": images[counter[0] % len(images)], "seed": np.int64(counter[0])})
+            counter[0] += 1
+        return out
+
+    launches = dict.fromkeys(KERNELS, 0)
+    result, legs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="esac_fleet_") as tmp:
+        t0 = time.perf_counter()
+        root, entries = pathlib.Path(tmp), {}
+        for s, name in enumerate("abc"):
+            params = init_scene_params(preset, seed=seed + 20 + s, device=dev)
+            save_scene_params(params, preset, root / name / "expert", root / name / "gating")
+            del params
+            entries[name] = SceneEntry(scene_id=name, version=1,
+                                       expert_ckpt=str(root / name / "expert"),
+                                       gating_ckpt=str(root / name / "gating"), preset=preset,
+                                       ransac=scene_cfg)
+        manifest = SceneManifest()
+        for e in entries.values():
+            manifest.add(e)
+        host_a = load_scene_params(entries["a"])
+        scene_bytes = tree_nbytes(host_a)
+        payload_bytes = compress_tree(host_a, "bf16")["nbytes"]
+        regs, recs, injs, reps = [], [], {}, []
+        for i in range(2):
+            reg = SceneRegistry(manifest, budget_bytes=scene_bytes, device=dev,
+                                host_tier=HostWeightTier(budget_bytes=3 * payload_bytes,
+                                                         compression="bf16"))
+            reg.prewarm_programs("a", size["buckets"], n_hyps_overrides=(None, TRACK_N_HYPS),
+                                 prior_slots=PRIOR_SLOTS)
+            pf = reg.attach_prefetcher(PrefetchPolicy(interval_ms=10.0, halflife_s=1.0,
+                                                      device_scenes=1,
+                                                      repromote_cooldown_s=0.05),
+                                       start=False) \
+                if i == 0 else None
+            rec = _Recorder(reg.infer_fn())
+            inj = FaultInjector(rec, tag=f"r{i}")
+            disp = MicroBatchDispatcher(
+                inj, cfg, slo=SLOPolicy(watchdog_ms=size["watchdog_ms"], watchdog_poll_ms=20.0),
+                device=dev, warm_frame=frames(1)[0],
+                arrival_sink=None if pf is None else pf.observe)
+            reg.bind_obs(disp.obs)
+            regs.append(reg)
+            recs.append(rec)
+            injs[f"r{i}"] = inj
+            reps.append(Replica(f"r{i}", disp, registry=reg))
+        signatures = [reg.compile_cache_size() for reg in regs]
+        router = FleetRouter(reps, FleetPolicy(poll_ms=2.0))
+        disps = [rep.dispatcher for rep in reps]
+        sync(dev)
+        result["setup_s"] = time.perf_counter() - t0
+        log(f"[fleet] 3 scenes written ({scene_bytes} bytes each, bf16 payload "
+            f"{payload_bytes}); 2 replicas (device budget 1 scene, host tier 3 payloads) "
+            f"prewarmed at buckets {size['buckets']} x n_hyps (256, {TRACK_N_HYPS}) x "
+            f"(plain, {PRIOR_SLOTS} prior slots): {signatures} batch signatures; "
+            f"{result['setup_s']:.1f} s")
+
+        def counted_leg(fn, what, extra_calls=0):
+            """``fn()`` between zeroed and read launch counters; select launches
+            must equal the replicas' serve calls, which equal their recorded
+            dispatches plus ``extra_calls`` (abandoned stalled dispatches)."""
+            calls0 = sum(r.calls for r in recs)
+            disp0 = sum(_dispatches(d) for d in disps)
+            out, n = _launches(fn)
+            dispatches = sum(_dispatches(d) for d in disps) - disp0
+            calls = sum(r.calls for r in recs) - calls0
+            if calls != dispatches + extra_calls:
+                raise AssertionError(f"{what}: {calls} serve calls for {dispatches} "
+                                     f"dispatches (+{extra_calls} abandoned)")
+            _expect_launches(dev, n, calls, what)
+            for k, v in n.items():
+                launches[k] += v
+            return out, dispatches
+
+        # a. scene-affinity routing over two replicas
+        t_leg = time.perf_counter()
+        for r in recs:
+            r.log = []
+        outs, errors = {}, []
+        plan = [frames(1)[0] for _ in range(size["requests"])]
+
+        def client(t):
+            try:
+                for k in range(t, size["requests"], size["threads"]):
+                    outs[k] = router.infer_one(plan[k], scene="ab"[k % 2], timeout=120.0)
+            except Exception as e:  # noqa: BLE001 -- reported below, then the run fails
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(size["threads"])]
+        _, n_disp = counted_leg(lambda: [t.start() for t in threads]
+                                + [t.join(180.0) for t in threads], "leg a")
+        if errors or len(outs) != size["requests"]:
+            raise AssertionError(f"leg a: {len(outs)} of {size['requests']} served: {errors}")
+        homes = router.scene_homes()
+        aff = router.affinity_stats()
+        books = router.fleet_totals()
+        if set(homes) != {"a", "b"} or aff["affinity"] < 1 or books["served"] != \
+                books["offered"] or sum(books[o] for o in ("served", "shed", "expired",
+                                                            "degraded", "failed",
+                                                            "pending")) != books["offered"]:
+            raise AssertionError(f"leg a: homes {homes}, affinity {aff}, books {books}")
+        _rows_of(recs[0].log + recs[1].log, [outs[k] for k in range(size["requests"])],
+                 [int(f["seed"]) for f in plan], "leg a")
+        for reg, rec in zip(regs, recs):
+            _redo(reg, rec.log, "leg a")
+            rec.log = None
+        _finite_rows(list(outs.values()), "leg a")
+        leg_s = time.perf_counter() - t_leg
+        legs["fleet"] = dict(seconds=leg_s, requests=size["requests"], dispatches=n_disp,
+                             homes=homes,
+                             affinity=aff, books=books)
+        log(f"[fleet] leg a: {size['requests']} requests from {size['threads']} threads over "
+            f"2 replicas in {n_disp} dispatches; homes {homes}; routes {aff}; every result "
+            "bit-equal to its replica's bucket function on the same batch")
+
+        # b. failover: scene a's home stalls
+        t_leg = time.perf_counter()
+        home = homes["a"][0]
+        survivor = "r1" if home == "r0" else "r0"
+        release = threading.Event()
+        for inj in injs.values():
+            inj.stall_once(release, match=lambda ctx, t=home: ctx["tag"] == t)
+        fo_frame = frames(1)[0]
+        t0 = time.perf_counter()
+
+        def failover():
+            req = router.submit(fo_frame, scene="a", deadline_ms=60_000.0)
+            return req, req.get(90.0)
+
+        (req, fo_out), _ = counted_leg(failover, "leg b (before release)")
+        fo_ms = (time.perf_counter() - t0) * 1e3
+        quarantined = router.quarantined_replicas()
+        if (req.outcome != "served" or req.failover_from != [home] or req.replica != survivor
+                or set(quarantined) != {home} or "wedge" not in quarantined[home]):
+            raise AssertionError(f"leg b: outcome {req.outcome}, from {req.failover_from}, "
+                                 f"replica {req.replica}, quarantined {quarantined}")
+        sdisp = disps[int(survivor[1])]
+        direct, _ = counted_leg(lambda: sdisp.infer_one(fo_frame, scene="a", timeout=120.0),
+                                "leg b (direct)")
+        for key in direct:
+            if not np.array_equal(direct[key], fo_out[key]):
+                raise AssertionError(f"leg b: failed-over {key} differs from the survivor "
+                                     "dispatched directly")
+
+        def release_and_serve():
+            calls0 = sum(r.calls for r in recs)
+            release.set()
+            _wait_calls(recs, calls0 + 1, "leg b (the released stall)")
+            router.release_replica(home)
+            hdisp = disps[int(home[1])]
+            hdisp.release_lane("a")
+            back = router.submit(frames(1)[0], scene="a", deadline_ms=60_000.0)
+            return back, back.get(90.0)
+
+        (back, back_out), _ = counted_leg(release_and_serve, "leg b (after release)",
+                                          extra_calls=1)
+        books = router.fleet_totals()
+        if back.outcome != "served" or back.replica != home or router.quarantined_replicas() \
+                or books["served"] != books["offered"]:
+            raise AssertionError(f"leg b: after release outcome {back.outcome} on "
+                                 f"{back.replica}, books {books}")
+        leg_s = time.perf_counter() - t_leg
+        legs["failover"] = dict(seconds=leg_s, home=home, survivor=survivor,
+                                quarantine=quarantined[home],
+                                failover_ms=fo_ms, books=books,
+                                injectors={n: i.stats() for n, i in injs.items()})
+        log(f"[fleet] leg b: {home} stalled -> quarantined ({quarantined[home][:60]}...); the "
+            f"request failed over to {survivor} in {fo_ms:.0f} ms (watchdog "
+            f"{size['watchdog_ms']:.0f} ms), bit-equal to {survivor} directly, counted once; "
+            f"released, {home} serves again")
+
+        # c. the host tier: a -> b -> c -> a on one replica
+        t_leg = time.perf_counter()
+        reg, disp = regs[int(home[1])], disps[int(home[1])]
+        cmp_frames = frames(2)
+        tier_ms, freed, order = {}, [], []
+        stats0 = reg.cache.stats()
+
+        def tier_walk():
+            outs_c, tree = {}, None
+            for step, name in enumerate(("a", "b", "c", "a")):
+                entry = entries[name]
+                old = reg.cache.keys()
+                source = ("device" if entry.key in reg.cache else
+                          "host" if entry.key in reg.host_tier else "disk")
+                tree = None
+                before = _cuda_mem(dev)
+                tree, ms = _timed_get(dev, reg.cache, entry)
+                after = _cuda_mem(dev)
+                order.append((name, source))
+                tier_ms.setdefault(source, ms)
+                for key in old:
+                    if key == entry.key:
+                        continue
+                    gone = None if before is None else before + tree_nbytes(tree) - after
+                    freed.append(dict(demoted=list(key), freed=gone))
+                    if key not in reg.host_tier or key in reg.cache:
+                        raise AssertionError(f"leg c: {key} was not demoted to the host tier")
+                    if gone is not None and gone < 0.9 * scene_bytes:
+                        raise AssertionError(f"leg c: demoting {key} freed {gone} bytes of "
+                                             f"{scene_bytes}")
+                outs_c[step] = disp.infer_many(cmp_frames, scene=name)
+            _, ms = _timed_get(dev, reg.cache, entries["a"])
+            tier_ms["warm"] = ms
+            return outs_c
+
+        outs_c, _ = counted_leg(tier_walk, "leg c")
+        st = reg.cache.stats()
+        if order[-1] != ("a", "host") or ("c", "disk") not in order or \
+                st["disk_loads"] - stats0["disk_loads"] != sum(s == "disk" for _, s in order):
+            raise AssertionError(f"leg c: sources {order}, cache {st}")
+        # The promoted weights: bf16-rounded CNNs, byte-exact geometry leaves.
+        staged = reg.cache.get(entries["a"])
+        w = staged["expert"][0].state_dict()
+        for k, v in host_a["expert"].items():
+            if not torch.equal(w[k].cpu(), v[0].to(torch.bfloat16).float()):
+                raise AssertionError(f"leg c: promoted expert leaf {k} is not the bf16-rounded "
+                                     "original")
+        for k in EXACT_KEYS:
+            if not torch.equal(staged[k].cpu(), host_a[k]):
+                raise AssertionError(f"leg c: promoted {k} is not byte-exact")
+
+        def rounded(entry):
+            tree = load_scene_params(entry)
+            for sub in ("expert", "gating"):
+                tree[sub] = {k: v.to(torch.bfloat16).float() for k, v in tree[sub].items()}
+            return tree
+
+        plain = SceneRegistry(manifest, loader=rounded, device=dev)
+        rows, _ = _direct(plain, entries["a"], cmp_frames, size["buckets"])
+        for lo, n, out in rows:
+            _same_rows(outs_c[3][lo:lo + n], {k: v[:n] for k, v in out.items()}, 0,
+                       "leg c (after the promote, against the bf16-rounded tree)")
+        del plain, rows
+        leg_s = time.perf_counter() - t_leg
+        legs["host_tier"] = dict(seconds=leg_s, sources=order, ms=tier_ms, freed=freed, cache=st,
+                                 tier=reg.host_tier.stats())
+        log(f"[fleet] leg c: a -> b -> c -> a on {home}: sources {order}; disk cold load "
+            f"{tier_ms['disk']:.1f} ms, host-tier promote {tier_ms['host']:.1f} ms, warm hit "
+            f"{tier_ms['warm']:.3f} ms; each demotion freed >= 0.9 of a scene; promoted "
+            "weights bf16-rounded (geometry exact), results bit-equal to the rounded tree")
+
+        # d. the prefetcher on replica 0, four requests for b to each for a
+        t_leg = time.perf_counter()
+        reg0, disp0, pf = regs[0], disps[0], regs[0]._prefetcher
+        n_b = int(round(size["prefetch_share"] / (1 - size["prefetch_share"])))
+        pf.run_cycle()  # fold the arrivals of legs a-c
+        pf.start()
+        ahead = []
+
+        def skewed():
+            for _ in range(size["prefetch_rounds"]):
+                for _ in range(n_b):
+                    disp0.infer_one(frames(1)[0], scene="b", timeout=120.0)
+                disp0.infer_one(frames(1)[0], scene="a", timeout=120.0)  # demotes b
+                time.sleep(0.15)  # prefetch cycles run (10 ms apart)
+                before = reg0.cache.stats()
+                resident = entries["b"].key in reg0.cache
+                disp0.infer_one(frames(1)[0], scene="b", timeout=120.0)
+                after = reg0.cache.stats()
+                ahead.append(resident and after["hits"] == before["hits"] + 1
+                             and after["host_hits"] == before["host_hits"]
+                             and after["disk_loads"] == before["disk_loads"])
+
+        counted_leg(skewed, "leg d")
+        pf.close()
+        pst = pf.stats()
+        if not all(ahead) or pst["issued_device"] < size["prefetch_rounds"]:
+            raise AssertionError(f"leg d: b promoted ahead of its demand {ahead}, prefetch {pst}")
+        leg_s = time.perf_counter() - t_leg
+        legs["prefetch"] = dict(seconds=leg_s, ahead=ahead, stats=pst, cache=reg0.cache.stats())
+        log(f"[fleet] leg d: b ({n_b} requests to each of a) was promoted back to the card "
+            f"before each "
+            f"of its {len(ahead)} next demands; prefetcher issued {pst['issued_device']} device "
+            f"+ {pst['issued_host']} host, {pst['hits']} hits, {pst['wasted']} wasted")
+
+        # e. sessions over the fleet, then the sequence leg
+        t_leg = time.perf_counter()
+        for r in recs:
+            r.log = []
+        sigs0 = [reg.compile_cache_size() for reg in regs]
+        sessions = SessionRouter(router, SessionPolicy(prior_slots=PRIOR_SLOTS,
+                                                       track_n_hyps=TRACK_N_HYPS,
+                                                       track_loss_frac=size["track_loss_frac"]))
+        sess_out, sess_err = {}, []
+
+        def stream(name, scene):
+            try:
+                sessions.open(name, scene=scene, full_n_hyps=scene_cfg.n_hyps)
+                sess_out[name] = [sessions.infer_frame(name, f, timeout=120.0)
+                                  for f in frames(size["session_frames"])]
+            except Exception as e:  # noqa: BLE001 -- reported below, then the run fails
+                sess_err.append(repr(e))
+
+        def run_sessions():
+            ths = [threading.Thread(target=stream, args=(f"s{s}", s)) for s in "ab"]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(300.0)
+
+        counted_leg(run_sessions, "leg e(1)")
+        lanes = [(n_hyps, tuple(batch["prior_valid"].shape)) for r in recs
+                 for _, n_hyps, batch, _ in r.log]
+        for r in recs:
+            r.log = None
+        transitions = [o["session_transition"] for outs_s in sess_out.values() for o in outs_s]
+        tracked = [o for outs_s in sess_out.values() for o in outs_s if o["session_tracked"]]
+        fracs = [float(o["inlier_frac"]) for outs_s in sess_out.values() for o in outs_s]
+        sigs1 = [reg.compile_cache_size() for reg in regs]
+        if (sess_err or len(transitions) != 2 * size["session_frames"] or not tracked
+                or not set(transitions) <= {"tracked", "lost", "cold"}
+                or any(n == TRACK_N_HYPS and shape[1] != PRIOR_SLOTS for n, shape in lanes)
+                or sum(n == TRACK_N_HYPS for n, _ in lanes) < 1 or sigs1 != sigs0):
+            raise AssertionError(f"leg e(1): errors {sess_err}, transitions {transitions}, "
+                                 f"inlier fractions {fracs}, lanes {lanes}, signatures "
+                                 f"{sigs0} -> {sigs1}")
+        _finite_rows([o for outs_s in sess_out.values() for o in outs_s], "leg e(1)")
+        (seq, calls), n = _launches(lambda: _sequence_leg(dev, seed, dict(
+            size, height=preset.height, width=preset.width)))
+        _expect_launches(dev, n, calls, "leg e(2)")
+        for k, v in n.items():
+            launches[k] += v
+        leg_s = time.perf_counter() - t_leg
+        legs["sessions"] = dict(seconds=leg_s, frames=2 * size["session_frames"],
+                                transitions={t: transitions.count(t)
+                                             for t in ("tracked", "lost", "cold")},
+                                tracked_lane_dispatches=sum(n == TRACK_N_HYPS for n, _ in lanes),
+                                inlier_frac_median=float(np.median(fracs)),
+                                table=sessions.table.stats(), signatures=sigs1, sequence=seq)
+        log(f"[fleet] leg e: 2 sessions x {size['session_frames']} frames over the fleet, "
+            f"transitions {legs['sessions']['transitions']}, "
+            f"{legs['sessions']['tracked_lane_dispatches']} dispatches on the n_hyps="
+            f"{TRACK_N_HYPS} lane with {PRIOR_SLOTS} prior slots, no new batch signature "
+            f"{sigs1}")
+        log(f"[fleet] leg e: sequence of {seq['frames']} frames at {preset.width}x"
+            f"{preset.height}: tracked {seq['tracked_frac']:.2f}, prior hits "
+            f"{seq['prior_hit_frac_tracked']:.2f} of tracked, median tracked "
+            f"{seq['tracked_ms_median']:.2f} ms vs full {seq['full_ms_median']:.2f} ms "
+            f"(ratio {seq['tracked_over_full']:.3f}); tracked median error "
+            f"{seq['tracked_median_rot_deg']:.3f} deg / {seq['tracked_median_trans_m']:.4f} m "
+            f"vs full {seq['full_median_rot_deg']:.3f} deg / "
+            f"{seq['full_median_trans_m']:.4f} m")
+
+        # f. image-only requests
+        t_leg = time.perf_counter()
+        rcfg = RetrievalConfig(height=preset.height, width=preset.width)
+        net = build_retriever(rcfg, seed=seed, device=dev)
+        fn = make_retrieval_fn(rcfg, device=dev)
+        index = SceneIndex(rcfg.max_scenes, rcfg.embed_dim)
+        looks = {}
+        for name, synth in (("a", "synth0"), ("b", "synth1")):
+            sc = SyntheticScene(synth, "test", n_frames=size["enroll_frames"] + 4,
+                                height=preset.height, width=preset.width, device=dev)
+            looks[name] = [sc[i].image.float().cpu().numpy()
+                           for i in range(size["enroll_frames"] + 4)]
+            protos, mask, _ = index.snapshot()
+            emb = fn(net, protos, mask, np.stack(looks[name][:size["enroll_frames"]]))
+            index.enroll(name, emb["embedding"].cpu().numpy())
+        front = RetrievalFront(fn, net, index, RetrievalPolicy(top_k=2, min_confidence=0.0))
+        router.attach_retrieval(front)
+        protos, mask, _ = index.snapshot()
+        probe = looks["a"][-1][None]
+        retr_ms = time_ms(lambda: fn(net, protos, mask, probe), dev, reps=10)
+        sig = fn._cache_size()
+        queries = [{"image": looks["ab"[i % 2]][size["enroll_frames"] + i // 2],
+                    "seed": np.int64(FLEET_SEED + 10_000 + i)}
+                   for i in range(size["image_requests"])]
+        img_out, _ = counted_leg(lambda: [router.infer_image(q, timeout=120.0)
+                                          for q in queries], "leg f")
+        for q, out in zip(queries, img_out):
+            win = out["retrieval"]["scene"]
+            direct = router.infer_one(q, scene=win, timeout=120.0)
+            for key in direct:
+                if not np.array_equal(direct[key], out[key]):
+                    raise AssertionError(f"leg f: the winner's {key} differs from the frame "
+                                         f"dispatched directly to scene {win}")
+        fst = front.stats()
+        if (fst["served"] != size["image_requests"] or fst["pending"]
+                or sum(fst[o] for o in ("served", "shed", "expired", "degraded", "failed"))
+                != fst["offered"] or fn._cache_size() != sig):
+            raise AssertionError(f"leg f: front {fst}, signatures {sig} -> {fn._cache_size()}")
+        leg_s = time.perf_counter() - t_leg
+        legs["images"] = dict(seconds=leg_s, requests=size["image_requests"], retriever_ms=retr_ms,
+                              winners=[o["retrieval"]["scene"] for o in img_out],
+                              top1_p=[o["retrieval"]["top1_p"] for o in img_out],
+                              front={k: v for k, v in fst.items() if k != "error_types"})
+        log(f"[fleet] leg f: {size['image_requests']} image-only requests served (winners "
+            f"{legs['images']['winners']}), each bit-equal to the frame dispatched to its "
+            f"winning scene; retriever forward {retr_ms:.3f} ms at batch 1; retriever "
+            f"signatures {fn._cache_size()} (enrollment batch, batch 1), none new")
+
+        router.close()
+        books = router.fleet_totals()
+        if books["served"] != books["offered"]:
+            raise AssertionError(f"fleet books {books}")
+        result.update(legs=legs, books=books, launches=launches,
+                      seconds=time.perf_counter() - t_phase)
+    log(f"[fleet] 6 legs passed in {result['seconds']:.1f} s; launches {launches}")
+    return result
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1977,6 +2650,7 @@ def main(argv=None) -> int:
         training = phase_training(dev, args.seed)
         workflow = phase_workflow(dev, args.seed)
         server = phase_server(dev, args.seed)
+        fleet = phase_fleet(dev, args.seed)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -2005,6 +2679,7 @@ def main(argv=None) -> int:
             "routed_launches": routed_launches[name], "prior_launches": prior_launches[name],
             "workflow_launches": workflow["launch_totals"][name],
             "server_launches": server["launches"][name],
+            "fleet_launches": fleet["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -2025,7 +2700,7 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
-                                       workflow=workflow, server=server),
+                                       workflow=workflow, server=server, fleet=fleet),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -2042,6 +2717,7 @@ def main(argv=None) -> int:
                                   "select": training["functions"]["err_select"]}}}))
     print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
     print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
+    print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,6 +35,15 @@ requests into frame buckets under ``serve.slo`` deadlines and admission
 control; ``serve.loadgen`` replays open-loop traffic and ``obs`` holds
 the counters, histograms and traces they publish.
 
+Fleet tier: ``fleet.FleetRouter`` routes scene-affine traffic over replica
+dispatchers (failover, replica breakers, hot-scene replication);
+``registry.hosttier.HostWeightTier`` keeps scenes demoted from the card as
+compressed host payloads and ``registry.prefetch.WeightPrefetcher`` promotes
+them ahead of demand; ``serve.session.SessionRouter`` serves tracked video
+sessions on a shrunken hypothesis budget with motion priors; and
+``retrieval`` answers image-only requests (a retriever CNN posterior over
+enrolled scenes, ``FleetRouter.infer_image``).
+
 Workflow: ``data`` (synthetic and on-disk scenes, augmentation),
 ``utils.checkpoint`` (torch checkpoints, crash-atomic train states),
 ``utils.profiling``, ``cli`` and ``scripts`` (``train_expert``,

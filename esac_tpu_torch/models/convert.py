@@ -5,7 +5,8 @@ Flax ``nn.Conv`` kernels are HWIO and become ``nn.Conv2d``'s OIHW; Flax
 ``nn.Dense`` kernels are (in, out) and become ``nn.Linear``'s (out, in).
 Flax numbers ``Conv_k`` / ``Dense_k`` by call order, which is the order of
 ``ExpertNet.layers_in_flax_order`` (the conditional residual projection
-included) and of ``GatingNet``'s layers.  Nothing here imports flax or
+included) and of ``GatingNet``'s and ``RetrieverNet``'s layers
+(:func:`load_retriever`).  Nothing here imports flax or
 orbax: the caller hands over the tree (``load_checkpoint`` output, or a
 ``load_scene_params`` tree converted to numpy).
 
@@ -67,17 +68,29 @@ def load_expert(net: ExpertNet, tree: dict) -> ExpertNet:
     return net
 
 
-def load_gating(net: GatingNet, tree: dict) -> GatingNet:
-    """Fill ``net`` from a Flax ``GatingNet`` param tree."""
+def _load_convs_dense(net, tree: dict, what: str):
+    """``Conv_k`` pairs into ``net.convs``, then ``Dense_0``, ``Dense_1``."""
     p = _params(tree)
     names = _numbered(p, "Conv_")
     if len(names) != len(net.convs) or _numbered(p, "Dense_") != ["Dense_0", "Dense_1"]:
-        raise ValueError(f"gating tree layers {sorted(p)} do not fit the module")
+        raise ValueError(f"{what} tree layers {sorted(p)} do not fit the module")
     for conv, name in zip(net.convs, names):
         _load_conv(conv, p[name], name)
     _load_dense(net.dense0, p["Dense_0"], "Dense_0")
     _load_dense(net.dense1, p["Dense_1"], "Dense_1")
     return net
+
+
+def load_gating(net: GatingNet, tree: dict) -> GatingNet:
+    """Fill ``net`` from a Flax ``GatingNet`` param tree."""
+    return _load_convs_dense(net, tree, "gating")
+
+
+def load_retriever(net, tree: dict):
+    """Fill a ``retrieval.model.RetrieverNet`` from a Flax ``RetrieverNet``
+    param tree (the gating net's layer order: ``Conv_k``, then ``Dense_0``,
+    ``Dense_1``)."""
+    return _load_convs_dense(net, tree, "retriever")
 
 
 def _index(tree, m: int):

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import random
 import threading
 import time
@@ -450,12 +451,20 @@ class SceneRegistry:
         health: HealthPolicy | None = HealthPolicy(),
         clock=time.perf_counter,
         obs: MetricsRegistry | None = None,
+        host_tier=None,
     ):
         self.manifest = manifest
         self.device = resolve_device(device)
+        # ``host_tier`` (a registry.hosttier.HostWeightTier) turns the device
+        # cache into the top of the three-tier weight hierarchy: LRU
+        # eviction demotes into compressed host RAM, re-admission promotes
+        # without disk IO, and a breaker trip's evict purges BOTH tiers.
+        self.host_tier = host_tier
         self.cache = DeviceWeightCache(
-            loader, budget_bytes, self.device,
+            loader, budget_bytes, self.device, tier=host_tier,
             stage=lambda entry, host: stage_scene_params(host, entry.preset, self.device))
+        # Set once by attach_prefetcher (attach before serving starts).
+        self._prefetcher = None
         self._fns: dict = {}
         self._fns_lock = threading.Lock()
         self._health_policy = health
@@ -480,6 +489,8 @@ class SceneRegistry:
         self.obs.register_collector("scene_health",
                                     self._health_collector)
         self.cache.bind_obs(self.obs)
+        if host_tier is not None:
+            host_tier.bind_obs(self.obs)
         self._health_lock = threading.Lock()
         # Deferred probes: (key, per-frame finiteness on the device).
         self._probes: collections.deque = collections.deque()
@@ -491,27 +502,36 @@ class SceneRegistry:
             maxlen=(health.events_window if health else 1)
         )
 
-    def _fn_for(self, entry: SceneEntry, route_k: int | None = None):
+    def _fn_for(self, entry: SceneEntry, route_k: int | None = None,
+                n_hyps: int | None = None):
         """The bucket function serving ``entry``: dense when ``route_k``
         is None (and the scene's cfg sets no ``serve_topk``), else the
         gating-first routed function for top-``route_k`` experts.
-        Functions are cached per (bucket key, K) -- scenes sharing
+        ``n_hyps`` overrides the scene config's hypothesis budget for this
+        function (the session lane's shrunken tracked budget); an override
+        equal to the scene's own budget is the scene's own function.
+        Functions are cached per (bucket key, K, n_hyps) -- scenes sharing
         preset+cfg share every function, so a hot swap adds no batch
-        signature at any K."""
+        signature at any (K, n_hyps)."""
         if route_k is None and entry.ransac.serve_topk > 0:
             route_k = entry.ransac.serve_topk
-        # NOTE: every distinct route_k is a PERMANENT cached function --
-        # callers own the cardinality.
-        key = (entry.bucket_key(), route_k)
+        if n_hyps is not None and n_hyps < 1:
+            # Fail at the boundary, not with a shape error inside the call.
+            raise ManifestError(f"n_hyps override must be >= 1, got {n_hyps}")
+        if n_hyps == entry.ransac.n_hyps:
+            n_hyps = None  # the scene's own budget: same function, one key
+        # NOTE: every distinct route_k / n_hyps is a PERMANENT cached
+        # function -- callers own the cardinality (a small prewarmed ladder).
+        key = (entry.bucket_key(), route_k, n_hyps)
         with self._fns_lock:
             fn = self._fns.get(key)
             if fn is None:
+                cfg = entry.ransac if n_hyps is None else \
+                    dataclasses.replace(entry.ransac, n_hyps=n_hyps)
                 fn = (
-                    make_scene_bucket_fn(entry.preset, entry.ransac, self.device)
+                    make_scene_bucket_fn(entry.preset, cfg, self.device)
                     if route_k is None
-                    else make_routed_scene_bucket_fn(
-                        entry.preset, entry.ransac, route_k, self.device
-                    )
+                    else make_routed_scene_bucket_fn(entry.preset, cfg, route_k, self.device)
                 )
                 self._fns[key] = fn
             return fn
@@ -535,27 +555,28 @@ class SceneRegistry:
         return 1
 
     def infer_fn(self):
-        """The dispatcher-facing callable: ``fn(batch, scene[, route_k])``
-        — ``route_k`` selects the top-K routed function for the dispatch
-        (None = the scene's default: dense, or ``cfg.serve_topk``).
-        With a health policy, each call
+        """The dispatcher-facing callable: ``fn(batch, scene[, route_k[,
+        n_hyps]])`` — ``route_k`` selects the top-K routed function for the
+        dispatch (None = the scene's default: dense, or
+        ``cfg.serve_topk``); ``n_hyps`` a hypothesis-budget override
+        function (see :meth:`_fn_for`).  With a health policy, each call
         first settles the previous dispatches' health probes (trips,
         rollbacks and canary decisions land here, BETWEEN dispatches),
         resolves through the breaker/canary, and enqueues this
         dispatch's probe."""
 
-        def serve(batch, scene, route_k=None):
+        def serve(batch, scene, route_k=None, n_hyps=None):
             if self._health_policy is None:
                 entry = self.manifest.resolve(scene)
                 params = self.cache.get(entry)
-                return self._fn_for(entry, route_k)(params, batch)
+                return self._fn_for(entry, route_k, n_hyps)(params, batch)
             self._drain_probes()
             entry = self._resolve_serving(scene)
             # Program resolution FIRST, outside the health-sampled
-            # region: an invalid route_k raises here and is the CALLER's
-            # fault — sampling it would let one misbehaving client trip a
-            # healthy version's breaker.
-            fn = self._fn_for(entry, route_k)
+            # region: a bad caller override (n_hyps=0, an invalid route_k)
+            # raises here and is the CALLER's fault — sampling it would let
+            # one misbehaving client trip a healthy version's breaker.
+            fn = self._fn_for(entry, route_k, n_hyps)
             try:
                 params = self.cache.get(entry)
                 out = fn(params, batch)
@@ -954,6 +975,54 @@ class SceneRegistry:
         metrics.register(self._m_health_events)
         metrics.register_collector("scene_health", self._health_collector)
         self.cache.bind_obs(metrics)
+        if self.host_tier is not None:
+            self.host_tier.bind_obs(metrics)
+        if self._prefetcher is not None:
+            self._prefetcher.bind_obs(metrics)
+
+    # ------------- tiered weight hierarchy + prefetch ----
+
+    def attach_prefetcher(self, policy=None, start: bool = True):
+        """Create (and by default start) the predictive
+        :class:`~esac_tpu_torch.registry.prefetch.WeightPrefetcher` over this
+        registry.  Dispatchers built AFTERWARDS via :meth:`dispatcher` feed
+        it their per-scene arrival stream automatically (``arrival_sink``);
+        its decision counters ride ``obs`` as the ``prefetch`` collector.
+        Attach once, before serving starts."""
+        from esac_tpu_torch.registry.prefetch import PrefetchPolicy, WeightPrefetcher
+
+        if self._prefetcher is not None:
+            raise ManifestError("a prefetcher is already attached")
+        pf = WeightPrefetcher(self, policy or PrefetchPolicy(), clock=self._clock)
+        self._prefetcher = pf
+        pf.bind_obs(self.obs)
+        if start:
+            pf.start()
+        return pf
+
+    def prefetch_targets(self, scene: str) -> list:
+        """The (scene, version) entries a prefetcher may stage for
+        ``scene``: the ACTIVE entry plus any in-flight canary's, minus
+        breaker-tripped keys (the trip just PURGED those weights from both
+        tiers).  Unknown scenes resolve to [] -- a misprediction, not an
+        error."""
+        with self._health_lock:
+            canary = self._canaries.get(scene)
+            canary_version = canary["version"] if canary is not None else None
+            tripped = set(self._tripped)
+        out = []
+        try:
+            entry = self.manifest.resolve(scene)
+        except ManifestError:
+            entry = None
+        if entry is not None and entry.key not in tripped:
+            out.append(entry)
+        if canary_version is not None and (scene, canary_version) not in tripped:
+            try:
+                out.append(self.manifest.entry(scene, canary_version))
+            except ManifestError:
+                pass
+        return out
 
     def _resolve_serving(self, scene: str) -> SceneEntry:
         """Breaker- and canary-aware resolution: the manifest's active
@@ -995,25 +1064,35 @@ class SceneRegistry:
         self.cache.get(self.manifest.resolve(scene_id))
 
     def prewarm_programs(self, scene_id: str, frame_buckets,
-                         route_ks=(None,)) -> int:
-        """Run (once, on zero frames) every (K, frame-bucket) bucket
+                         route_ks=(None,), n_hyps_overrides=(None,),
+                         prior_slots: int = 0) -> int:
+        """Run (once, on zero frames) every (K, n_hyps, frame-bucket) bucket
         function a scene's traffic -- including an SLO degradation ladder
         (``SLOPolicy.degrade_route_k``) -- can reach, OFF the hot path, so
         the first dispatch of each shape (cuDNN's algorithm choice, the
         allocator's growth) does not land on a request or look like a
-        stall to the watchdog.  Zero batches carry per-frame ``seed`` leaves
-        where the JAX package carries PRNG keys.  Returns the batch
-        signature count afterwards."""
+        stall to the watchdog.  ``n_hyps_overrides`` runs hypothesis-budget
+        override functions too (see :meth:`_fn_for`), and ``prior_slots >
+        0`` ADDITIONALLY runs each combination on a prior-slot batch
+        (``prior_rvec`` / ``prior_tvec`` / ``prior_valid`` leaves with P =
+        ``prior_slots``), the session lane's batches.  Zero batches carry
+        per-frame ``seed`` leaves where the JAX package carries PRNG keys.
+        Returns the batch signature count afterwards."""
         entry = self.manifest.resolve(scene_id)
         params = self.cache.get(entry)
         H, W = entry.preset.height, entry.preset.width
-        for k in route_ks:
-            fn = self._fn_for(entry, k)
+        for k, nh in itertools.product(route_ks, n_hyps_overrides):
+            fn = self._fn_for(entry, k, nh)
             for bucket in sorted(set(frame_buckets)):
                 B = max(int(bucket), MIN_LANES)
                 batch = {"seed": np.zeros(B, np.int64),
                          "image": np.zeros((B, H, W, 3), np.float32)}
                 fn(params, batch)
+                if prior_slots > 0:
+                    fn(params, dict(batch,
+                                    prior_rvec=np.zeros((B, prior_slots, 3), np.float32),
+                                    prior_tvec=np.zeros((B, prior_slots, 3), np.float32),
+                                    prior_valid=np.zeros((B, prior_slots), bool)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.compile_cache_size()
@@ -1029,6 +1108,11 @@ class SceneRegistry:
         keeps its own PRIVATE serve counters."""
         from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher
 
+        if self._prefetcher is not None:
+            # Feed the predictive prefetcher this dispatcher's per-scene
+            # arrival stream (called OUTSIDE the dispatcher lock; observe()
+            # is a bounded non-blocking append).  Callers may override.
+            kw.setdefault("arrival_sink", self._prefetcher.observe)
         kw.setdefault("device", self.device)
         disp = MicroBatchDispatcher(
             self.infer_fn(), cfg, start_worker=start_worker, **kw

@@ -1,2 +1,19 @@
 """The serving front end: bucketed batching and staging, the micro-batching
-dispatcher, the SLO layer and the open-loop load generator."""
+dispatcher, the SLO layer, the open-loop load generator and tracked
+sessions."""
+
+from esac_tpu_torch.serve.session import (
+    SessionEvictedError,
+    SessionPolicy,
+    SessionRouter,
+    SessionTable,
+    SessionUnknownError,
+)
+
+__all__ = [
+    "SessionEvictedError",
+    "SessionPolicy",
+    "SessionRouter",
+    "SessionTable",
+    "SessionUnknownError",
+]

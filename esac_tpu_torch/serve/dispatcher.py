@@ -96,7 +96,7 @@ import time
 import numpy as np
 import torch
 
-from esac_tpu_torch.obs import MetricsRegistry, Trace, trace_scope
+from esac_tpu_torch.obs import MetricsRegistry, SpanChain, Trace, trace_scope
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.ransac.esac import esac_infer_frames
 from esac_tpu_torch.ransac.kernel import dsac_infer_frames, frame_generators
@@ -132,15 +132,16 @@ class _Request:
     caller should use (a bare ``event.wait()`` on a dead server is the
     exact unbounded-blocking bug this layer exists to kill)."""
 
-    __slots__ = ("frame", "scene", "route_k", "event", "result",
+    __slots__ = ("frame", "scene", "route_k", "n_hyps", "event", "result",
                  "error", "t_submit", "t_done", "deadline", "done", "outcome",
                  "owner", "spans", "trace")
 
     def __init__(self, frame, t_submit, scene=None, route_k=None,
-                 deadline=None, owner=None):
+                 deadline=None, owner=None, n_hyps=None):
         self.frame = frame
         self.scene = scene
         self.route_k = route_k
+        self.n_hyps = n_hyps      # per-dispatch hypothesis-budget override
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -151,7 +152,8 @@ class _Request:
         self.outcome = None       # served|shed|expired|degraded|failed
         self.owner = owner        # dispatcher, for timeout abandonment
         self.spans = None         # obs.SpanChain when tracing is on
-        self.trace = None         # obs.Trace when tracing is on
+        self.trace = None         # obs.Trace: dispatcher-minted, or the
+        #                           fleet trace riding in via trace_ctx
 
     def get(self, timeout: float | None = None):
         """Wait up to ``timeout`` seconds for the result; raises the
@@ -205,7 +207,10 @@ class MicroBatchDispatcher:
     bucket up front: here for the constructing thread (``infer_many`` and
     the sync path stage from their caller's thread), and in each worker
     thread before it takes a request (:meth:`start` waits for that), so no
-    request pays a first pinned allocation.
+    request pays a first pinned allocation.  ``arrival_sink(scene)`` is
+    called once per scene-carrying submission, outside the dispatcher lock
+    and before admission (the predictive prefetcher's feed; it must not
+    block or raise).
     """
 
     def __init__(
@@ -220,11 +225,15 @@ class MicroBatchDispatcher:
         trace: bool = False,
         device=None,
         warm_frame: dict | None = None,
+        arrival_sink=None,
     ):
         if stats_window < 1:
             raise ValueError(f"stats_window {stats_window} < 1")
         self._device = resolve_device(device)
         self._infer = infer_fn
+        # Per-scene arrival tap (WeightPrefetcher.observe is a bounded
+        # deque append).  Immutable post-init; None = no tap.
+        self._arrival_sink = arrival_sink
         self._buckets = tuple(sorted(set(cfg.frame_buckets)))
         # Pooled host staging (per-thread buffers, see batching.py):
         # padding templates are built once per (leaf, lanes, dtype,
@@ -241,10 +250,11 @@ class MicroBatchDispatcher:
         self._work = threading.Condition(self._lock)   # waiters: worker
         self._space = threading.Condition(self._lock)  # waiters: submitters
         # Per-(scene, route_k) lane queues in round-robin order (lane
-        # (None, None) = the legacy single-scene mode); a dispatch never
-        # mixes scenes — the scene decides the weights — and never mixes
-        # route_k values, because K selects the routed bucket function:
-        # one dispatch rides exactly one bucket function.
+        # (None, None) = the legacy single-scene mode; an explicit n_hyps
+        # makes the lane (scene, route_k, n_hyps)); a dispatch never mixes
+        # scenes — the scene decides the weights — and never mixes route_k
+        # or n_hyps values, because they select the bucket function: one
+        # dispatch rides exactly one bucket function.
         self._pending: "collections.OrderedDict[tuple, collections.deque[_Request]]" = (
             collections.OrderedDict()
         )
@@ -307,8 +317,15 @@ class MicroBatchDispatcher:
         # per-request span chains; everything else is always on.
         self.obs = obs if obs is not None else MetricsRegistry()
         self._trace = bool(trace)
-        # Completed traces land here (the ``traces`` collector).
+        # Completed dispatcher-MINTED traces land here (the ``traces``
+        # collector).  Fleet traces riding in via submit(trace_ctx=...)
+        # belong to the router's store -- this dispatcher only stamps their
+        # child chains.
         self._trace_store = self.obs.trace_store() if self._trace else None
+        # Fast-path gate for _stamp: stays False until either this
+        # dispatcher traces everything or a trace-carrying request has been
+        # seen, so the untraced request path pays one attribute check.
+        self._tracing_any = self._trace
         self._m_offered = self.obs.counter(
             "serve_offered_total",
             "requests ever offered (re-based by reset_stats)",
@@ -388,7 +405,9 @@ class MicroBatchDispatcher:
     # ---------------- request path ----------------
 
     def submit(self, frame: dict, scene=None, route_k=None,
-               deadline_ms: float | None = None) -> _Request:
+               deadline_ms: float | None = None,
+               trace_ctx: Trace | None = None,
+               n_hyps: int | None = None) -> _Request:
         """Enqueue one frame tree (optionally for a registry ``scene`` and
         a routed top-K program ``route_k``); returns a request whose
         ``event`` fires when ``result`` (or ``error``) is set.
@@ -399,8 +418,26 @@ class MicroBatchDispatcher:
         a predicted deadline miss raises a typed
         :class:`~esac_tpu_torch.serve.slo.ShedError` subclass immediately, and
         the request carries ``deadline_ms`` (default
-        ``slo.deadline_ms``)."""
+        ``slo.deadline_ms``).
+
+        ``trace_ctx`` is a fleet :class:`~esac_tpu_torch.obs.Trace` minted
+        one tier up (FleetRouter sampling): the request gets a span chain
+        and rides the registry fault path traced regardless of this
+        dispatcher's own ``trace`` flag — the dispatcher stamps the CHILD
+        chain, the router owns the root and the store.
+
+        ``n_hyps`` rides the per-dispatch hypothesis-budget override into
+        the registry serve function (the session lane's shrunken budget).
+        An explicit ``n_hyps`` puts the request on its own coalescing lane
+        — ``(scene, route_k, n_hyps)`` — so requests with different budgets
+        (or different batch tree structures: session frames carry prior
+        leaves) never share a dispatch; outcome accounting stays keyed
+        ``(scene, route_k)``."""
         t_submit = self._clock()
+        if self._arrival_sink is not None and scene is not None:
+            # Arrival tap for the prefetcher: outside the lock, before
+            # admission — a shed request is still demand evidence.
+            self._arrival_sink(scene)
         # An EXPLICIT deadline_ms is honored with or without a policy —
         # silently ignoring a requested bound would reintroduce the
         # unbounded-blocking bug for exactly the caller who asked not to
@@ -409,9 +446,10 @@ class MicroBatchDispatcher:
             deadline_ms = self._slo.deadline_ms
         deadline = (t_submit + deadline_ms / 1e3
                     if deadline_ms is not None else None)
-        req = _Request(frame, t_submit, scene, route_k, deadline, owner=self)
-        self._init_trace(req, t_submit, scene)
-        lane = (scene, route_k)
+        req = _Request(frame, t_submit, scene, route_k, deadline, owner=self,
+                       n_hyps=n_hyps)
+        self._init_trace(req, trace_ctx, t_submit, scene)
+        lane = (scene, route_k) if n_hyps is None else (scene, route_k, n_hyps)
         with self._work:
             if self._slo is None:
                 # Legacy backpressure — but a request WITH a deadline must
@@ -443,11 +481,19 @@ class MicroBatchDispatcher:
             self._work.notify()
         return req
 
-    def _init_trace(self, req: _Request, t_submit, scene):
-        """Arm tracing for one request: a traced dispatcher mints a
-        :class:`~esac_tpu_torch.obs.Trace` whose ROOT chain is the
-        request's chain."""
-        if self._trace:
+    def _init_trace(self, req: _Request, trace_ctx, t_submit, scene):
+        """Arm tracing for one request: a fleet ``trace_ctx`` gets a fresh
+        CHILD chain (the router owns the root); a standalone traced
+        dispatcher mints its own :class:`~esac_tpu_torch.obs.Trace` whose
+        ROOT chain is the request's chain (``req.spans is req.trace.root``
+        marks dispatcher ownership -- what _finish keys store publication
+        on)."""
+        if trace_ctx is not None:
+            req.trace = trace_ctx
+            req.spans = SpanChain("admitted", t_submit)
+            if not self._tracing_any:
+                self._tracing_any = True
+        elif self._trace:
             req.trace = Trace(t_submit, scene=scene, root_stage="admitted")
             req.spans = req.trace.root
 
@@ -503,7 +549,8 @@ class MicroBatchDispatcher:
 
     def infer_one(self, frame: dict, scene=None, route_k=None,
                   timeout: float | None = None,
-                  deadline_ms: float | None = None) -> dict:
+                  deadline_ms: float | None = None,
+                  n_hyps: int | None = None) -> dict:
         """Blocking single-frame inference through the batching queue.
 
         ``timeout`` bounds the wait in seconds (independent of any SLO);
@@ -523,15 +570,18 @@ class MicroBatchDispatcher:
             has_worker = self._worker is not None
         if not has_worker:
             t_submit = self._clock()
+            if self._arrival_sink is not None and scene is not None:
+                self._arrival_sink(scene)  # sync path: same tap as submit()
             if deadline_ms is None and self._slo is not None:
                 deadline_ms = self._slo.deadline_ms
             bounds = ([t_submit + deadline_ms / 1e3]
                       if deadline_ms is not None else [])
             bounds += [t_submit + timeout] if timeout is not None else []
             req = _Request(frame, t_submit, scene, route_k,
-                           min(bounds) if bounds else None, owner=self)
-            self._init_trace(req, t_submit, scene)
-            lane = (scene, route_k)
+                           min(bounds) if bounds else None, owner=self,
+                           n_hyps=n_hyps)
+            self._init_trace(req, None, t_submit, scene)
+            lane = (scene, route_k) if n_hyps is None else (scene, route_k, n_hyps)
             with self._work:
                 self._raise_if_unservable()
                 self._count_offered()
@@ -546,7 +596,7 @@ class MicroBatchDispatcher:
                 # queue as the deadline bounds the space wait and queue
                 # residency too, not just the event wait at the end.
                 deadline_ms = timeout * 1e3
-            req = self.submit(frame, scene, route_k, deadline_ms)
+            req = self.submit(frame, scene, route_k, deadline_ms, n_hyps=n_hyps)
             limit = timeout
             if req.deadline is not None:
                 # Clamp to the REMAINING deadline window: submit() may
@@ -569,7 +619,7 @@ class MicroBatchDispatcher:
         return req.result
 
     def infer_many(self, frames: list[dict], scene=None,
-                   route_k=None) -> list[dict]:
+                   route_k=None, n_hyps=None) -> list[dict]:
         """Bulk inference: bucket-planned dispatches, staging double-buffered
         against in-flight compute.  Returns per-frame result trees (host
         numpy), in input order.  Bulk submission is inherently
@@ -577,6 +627,9 @@ class MicroBatchDispatcher:
         control does not apply here; outcomes still land in the
         accounting."""
         t_submit = self._clock()
+        if self._arrival_sink is not None and scene is not None:
+            for _ in frames:  # bulk arrivals weigh their frame count
+                self._arrival_sink(scene)
         plan = plan_dispatches(len(frames), self._buckets)
         bounds = []
         lo = 0
@@ -595,7 +648,7 @@ class MicroBatchDispatcher:
             tree, n_valid, bucket = staged
             # the call returns once its work is queued (or, where the
             # RANSAC path synchronizes inside, once that sync passed)
-            out = self._call(tree, scene, route_k)
+            out = self._call(tree, scene, route_k, n_hyps)
             done = self._record_done()
             if i + 1 < len(bounds):
                 staged = stage(*bounds[i + 1])  # host staging overlaps compute
@@ -621,11 +674,14 @@ class MicroBatchDispatcher:
 
     # ---------------- worker ----------------
 
-    def _call(self, tree, scene, route_k=None):
+    def _call(self, tree, scene, route_k=None, n_hyps=None):
         """Invoke the entry point: scene-carrying dispatches pass the scene
-        (and, for routed programs, ``route_k``) through — registry serve
-        fns take ``(tree, scene[, route_k])``; legacy traffic keeps the
+        (and, for routed programs, ``route_k``; for budget-override lanes,
+        ``n_hyps``) through — registry serve fns take
+        ``(tree, scene[, route_k[, n_hyps]])``; legacy traffic keeps the
         one-argument contract byte-for-byte."""
+        if n_hyps is not None:
+            return self._infer(tree, scene, route_k, n_hyps)
         if route_k is not None:
             return self._infer(tree, scene, route_k)
         if scene is None:
@@ -656,8 +712,10 @@ class MicroBatchDispatcher:
         timeout / watchdog while this dispatch was in flight) are
         skipped best-effort; the unavoidable race remnant — a late stamp
         landing after the terminal one — is made inert by the chain's
-        read-side truncation (obs.trace)."""
-        if not self._trace:
+        read-side truncation (obs.trace).  The gate covers fleet trace_ctx
+        requests too (``_tracing_any`` flips on the first one); the
+        per-request ``spans`` checks keep mixed batches correct."""
+        if not self._tracing_any:
             return
         if t is None:
             t = self._clock()
@@ -706,11 +764,12 @@ class MicroBatchDispatcher:
             req.spans.stamp(outcome, req.t_done)
             for stage, dt in req.spans.durations().items():
                 self._m_stage.observe(dt, stage=stage)
-            if req.trace is not None:
-                # The request's chain IS the trace's root (terminally
-                # stamped above, so the trace only needs its outcome/done
-                # marks) and this dispatcher's ring-bounded store is its
-                # home.
+            if req.trace is not None and req.spans is req.trace.root:
+                # Dispatcher-minted trace: the request's chain IS the root
+                # (terminally stamped above, so the trace only needs its
+                # outcome/done marks) and this dispatcher's ring-bounded
+                # store is its home.  Fleet traces (trace_ctx) are finished
+                # by the router.
                 req.trace.outcome = outcome
                 req.trace.done = True
                 if self._trace_store is not None:
@@ -739,7 +798,7 @@ class MicroBatchDispatcher:
         overload the lane downshifts one rung of the degradation ladder
         (a cheaper routed bucket function the registry already holds).
         Returns (live requests, effective_k, degraded?)."""
-        scene, route_k = lane
+        scene, route_k = lane[0], lane[1]
         now = self._clock()
         live = []
         for r in batch:
@@ -881,14 +940,15 @@ class MicroBatchDispatcher:
         retry/quarantine handling.  ``gen`` is the worker generation (None
         on the sync path); a dispatch whose generation was abandoned by
         the watchdog discards its late outcome entirely."""
-        scene, route_k = lane
+        scene, route_k = lane[0], lane[1]
+        n_hyps = lane[2] if len(lane) > 2 else None
         self._stamp(reqs, "coalesced")
         # Trace context for the registry fault path: the
         # batch's traces ride a contextvar through the dispatch so the
         # weight cache / host tier / health machinery can record spans
         # without signature plumbing.  Zero-cost with tracing off.
         traced = ([r.trace for r in reqs if r.trace is not None]
-                  if self._trace else [])
+                  if self._tracing_any else [])
         attempt = 0
         while True:
             with self._work:
@@ -900,10 +960,10 @@ class MicroBatchDispatcher:
                 if traced:
                     with trace_scope(traced):
                         host, bucket, n_valid, t_done = self._dispatch(
-                            reqs, scene, eff_k)
+                            reqs, scene, eff_k, n_hyps)
                 else:
                     host, bucket, n_valid, t_done = self._dispatch(
-                        reqs, scene, eff_k)
+                        reqs, scene, eff_k, n_hyps)
                 # Host-side result slicing: inside the try — a malformed
                 # result tree must fail THIS batch, never the worker — but
                 # OUTSIDE the lock: admission control's microsecond-
@@ -1001,7 +1061,7 @@ class MicroBatchDispatcher:
                                         n=n_ok)
             return
 
-    def _dispatch(self, reqs: list[_Request], scene, route_k):
+    def _dispatch(self, reqs: list[_Request], scene, route_k, n_hyps=None):
         """Pad, stage and execute one dispatch; returns the host-side
         results + timing.  No dispatcher state is touched here -- the
         caller owns locking and fan-out.  The span stamps reuse the
@@ -1014,7 +1074,7 @@ class MicroBatchDispatcher:
         )
         staged = self._to_device(padded)
         self._stamp(reqs, "staged")
-        out = self._call(staged, scene, route_k)
+        out = self._call(staged, scene, route_k, n_hyps)
         self._stamp(reqs, "dispatched")
         self._wait(self._record_done())
         t_done = self._clock()
@@ -1206,7 +1266,7 @@ class MicroBatchDispatcher:
         with self._lock:
             return dict(self._quarantined)
 
-    def release_lane(self, scene=None, route_k=None) -> bool:
+    def release_lane(self, scene=None, route_k=None, n_hyps=None) -> bool:
         """Operator action: clear a lane's quarantine + failure streak
         after the underlying fault (a recovered device, fixed weights) is
         resolved.  New submissions to the lane are admitted again.
@@ -1216,7 +1276,7 @@ class MicroBatchDispatcher:
         orders leave a consistent breaker state and exact accounting
         (pinned in the tests).  True when a quarantine
         was actually cleared."""
-        lane = (scene, route_k)
+        lane = (scene, route_k) if n_hyps is None else (scene, route_k, n_hyps)
         with self._work:
             was = self._quarantined.pop(lane, None)
             self._fail_streak.pop(lane, None)

@@ -20,7 +20,7 @@ from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
 from esac_tpu_torch.ransac.config import SCORING_IMPLS, RansacConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "esac_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "ml_dtypes", "esac_tpu")
 
 
 def _port_files():
@@ -158,3 +158,35 @@ def test_typed_errors_keep_the_reference_wire_names_and_retry_flags():
     ours = _typed_errors([slo, health, manifest])
     ref = _typed_errors([j_slo, j_health, j_manifest])
     assert len(ours) == 12 and ours == ref
+
+
+def test_fleet_tier_policies_and_configs_equal_the_reference():
+    """The fleet slice's frozen knob sets keep the JAX package's defaults."""
+    from esac_tpu.fleet import FleetPolicy as JFleetPolicy
+    from esac_tpu.registry import PrefetchPolicy as JPrefetchPolicy
+    from esac_tpu.retrieval import RetrievalPolicy as JRetrievalPolicy
+    from esac_tpu.retrieval.model import RetrievalConfig as JRetrievalConfig
+    from esac_tpu.serve import SessionPolicy as JSessionPolicy
+    from esac_tpu_torch.fleet import FleetPolicy
+    from esac_tpu_torch.registry.prefetch import PrefetchPolicy
+    from esac_tpu_torch.retrieval import RetrievalConfig, RetrievalPolicy
+    from esac_tpu_torch.serve import SessionPolicy
+
+    pairs = [(SessionPolicy, JSessionPolicy), (FleetPolicy, JFleetPolicy),
+             (PrefetchPolicy, JPrefetchPolicy), (RetrievalPolicy, JRetrievalPolicy),
+             (RetrievalConfig, JRetrievalConfig)]
+    for ours, ref in pairs:
+        assert _defaults(ours) == _defaults(ref), ours.__name__
+
+
+def test_fleet_tier_typed_errors_keep_the_reference_wire_names():
+    from esac_tpu.fleet import router as j_router
+    from esac_tpu.retrieval import errors as j_errors
+    from esac_tpu.serve import session as j_session
+    from esac_tpu_torch.fleet import router
+    from esac_tpu_torch.retrieval import errors
+    from esac_tpu_torch.serve import session
+
+    ours = _typed_errors([router, errors, session])
+    ref = _typed_errors([j_router, j_errors, j_session])
+    assert len(ours) == 5 and ours == ref

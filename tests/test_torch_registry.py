@@ -299,10 +299,10 @@ def test_lru_eviction_order_matches_the_jax_cache():
     j, t = caches
     assert list(t.evictions) == list(j.evictions) and len(t.evictions) >= 4
     assert t.keys() == j.keys() and t.bytes_in_use == j.bytes_in_use
-    for k in ("hits", "misses", "evictions", "resident", "bytes_in_use", "load_failures"):
-        assert t.stats()[k] == j.stats()[k], k
-    with pytest.raises(ValueError):
-        DeviceWeightCache(loader, budget_bytes=1024, device="cpu", tier=object())
+    assert t.stats() == j.stats()
+    for cls, kw in ((JDeviceWeightCache, {}), (DeviceWeightCache, {"device": "cpu"})):
+        with pytest.raises(ValueError):
+            cls(loader, budget_bytes=0, **kw)
 
 
 # ------------------------------------------ the port's registry at 16x16
