@@ -167,7 +167,42 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  dispatched to its scene; the retriever forward in ms.
                  Every leg's select launches equal the serve calls that
                  returned (the dispatches, and the stalled dispatch of (b),
-                 which runs once released); no score launch.
+                 which runs once released); no score launch.  The router
+                 carries a timeline (0.25 s windows) and the default health
+                 rules for the whole phase (phase 10 e);
+10. parallel  -- the expert-parallel path (esac_tpu_torch.parallel) under
+                 "fused_select" for serving and "pallas" for training.
+                 (a) one NCCL rank in this process: sharded coords-level
+                 frames at config #2's shape (7 experts, N = 4800, 256
+                 hypotheses) in buckets of 1 and 4 frames bit-identical to
+                 esac_infer_frames (winner, expert, score, pose), and
+                 make_sharded_serve_fn behind a dispatcher likewise;
+                 (b) 2 gloo ranks spawned here, both on the one card (NCCL
+                 refuses two ranks on one device): MAX, MIN and SUM
+                 all-reduces of CUDA tensors checked first; config #4's 50
+                 full-width bf16 experts, 25 on each rank (~1.07 GiB of f32
+                 weights a rank): 4 frames of coords-level serving (a
+                 first and a warm dispatch) through a dispatcher on rank 0
+                 (the other rank following)
+                 bit-identical to esac_infer_frames; routed-sharded top-2
+                 serving from images (routed_serve_capacity) with winners
+                 and evaluated sets equal to make_routed_scene_bucket_fn's
+                 and poses within ROUTED_POSE_ATOL; 7 experts padded to 8,
+                 the pad a copy of the true expert, never winning; exactly
+                 one select launch per rank per dispatch; (c) on the same
+                 ranks, 2 training steps at config #2's shape padded to 8
+                 experts, 2 frames, dense and capacity 2: losses within
+                 rtol 1e-3 of the single-device step (dense) and of the
+                 single-device loss truncated to the same selection
+                 (capacity, first step), finite gradients, non-zero on
+                 every real local expert (dense) and on the gating net,
+                 exactly one score launch per rank per step; (d) phase 7's
+                 test_esac --sharded at world size 1 reports the dense
+                 evaluation's numbers; (e) phase 9's router ticked at least
+                 two timeline windows and the Prometheus page of its
+                 snapshot names every registered collector.  Times of legs
+                 b and c are of two processes sharing one card through
+                 gloo's host staging: they measure no interconnect.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -181,8 +216,8 @@ nothing).
 
 Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
-{"fleet": {...}}, one JSON line {"kernels": [...]} and the
-nvidia-smi name/power-limit line; the last
+{"fleet": {...}}, one JSON line {"parallel": {...}}, one JSON line
+{"kernels": [...]} and the nvidia-smi name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -249,6 +284,16 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "session_frames4": (4, 7, 32, 480, 640),
     "session_frames16": (16, 7, 32, 480, 640),
     "session_frame1": (1, 7, 32, 480, 640),
+    # Phase 10 (expert-parallel, 2 ranks): each rank's select launches --
+    # config #4's 25 local experts x 4 frames; routed top-2 of 50 experts
+    # (4 frames x 2 slots x 256 * 50 // 2 hypotheses); 4 frames x 4 padded
+    # slots -- and its score launches in sharded training (2 frames x the 8
+    # gathered experts dense, 2 frames x 2 at capacity 2).
+    "sharded_local25": (4, 25, 256, 480, 640),
+    "sharded_routed_k2": (4, 2, 6400, 480, 640),
+    "sharded_padded": (4, 4, 256, 480, 640),
+    "sharded_train_dense": (2, 8, 256, 480, 640),
+    "sharded_train_capacity2": (2, 2, 256, 480, 640),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
 # Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
@@ -1587,6 +1632,35 @@ def phase_workflow(dev, seed, size=WORKFLOW):
                 raise AssertionError(f"test_esac {mode}: {rec['frames']} frames, errors "
                                      f"{rec['per_frame']}")
             evals[mode] = rec
+        # Phase 10 (d): the dense evaluation through --sharded at world size
+        # 1 (one rank in this process: NCCL on the card, gloo on the CPU).
+        path = d / "eval_sharded.json"
+        record("test_esac sharded", test_esac,
+               [*scenes, *where, "--size", size["size"], "--res", str(size["height"]),
+                str(size["width"]), "--frames", str(size["frames"]), "--hypotheses",
+                str(size["hypotheses"]), "--scoring-impl", "pallas", "--eval-batch",
+                str(size["eval_batch"]), "--limit", str(size["limit"]),
+                "--experts", *final[0], "--gating", final[1], "--json", str(path),
+                "--sharded"], batches)
+        sharded = json.loads(path.read_text())
+        dense = evals["dense"]
+        same = ("frames", "median_rot_deg", "median_trans_cm", "pct_5cm5deg",
+                "expert_accuracy_pct", "gating_top1_pct", "evaluated_recall_pct",
+                "hypotheses_total")
+        for k in same:
+            if sharded[k] != dense[k]:
+                raise AssertionError(f"test_esac --sharded: {k} {sharded[k]} != {dense[k]}")
+        for k in ("expert", "rot_err_deg", "trans_err_cm", "winner_score"):
+            if sharded["per_frame"][k] != dense["per_frame"][k]:
+                raise AssertionError(f"test_esac --sharded: per-frame {k} differs")
+        if not (sharded["sharded"] and sharded["devices"] == 1
+                and sharded["experts_total"] == len(scenes)):
+            raise AssertionError(f"test_esac --sharded: {sharded}")
+        sharded_eval = dict(frames=sharded["frames"], winners=sharded["per_frame"]["expert"],
+                            equal_keys=list(same), frame_ms=sharded["median_ms_per_frame"],
+                            dense_frame_ms=dense["median_ms_per_frame"],
+                            script_s=walls["test_esac sharded"],
+                            launches=launches["test_esac sharded"])
 
     totals = {k: sum(n[k] for n in launches.values()) for k in KERNELS}
     result = dict(
@@ -1601,7 +1675,7 @@ def phase_workflow(dev, seed, size=WORKFLOW):
         accuracy={mode: {k: rec[k] for k in ("pct_5cm5deg", "expert_accuracy_pct",
                                              "gating_top1_pct", "evaluated_recall_pct")}
                   for mode, rec in evals.items()},
-        eval_batches=batches)
+        eval_batches=batches, sharded_eval=sharded_eval)
     log(f"[workflow] {len(scenes)} scenes x {size['frames']} frames at {size['width']}x"
         f"{size['height']}, --size {size['size']}: warm ms/iteration "
         + ", ".join(f"{k} {v:.1f}" for k, v in result["iteration_ms_warm"].items())
@@ -2013,6 +2087,7 @@ FLEET = dict(buckets=(1, 4, 16), requests=24, threads=6, watchdog_ms=2000.0,
              track_loss_frac=1e-5, seq_frames=48, seq_full=256, image_requests=8,
              enroll_frames=4)
 FLEET_SEED = 90_000
+FLEET_WINDOW_S = 0.25  # the fleet router's timeline window (phase 10 e)
 TRACK_N_HYPS = 32  # esac_tpu/serve/session.py SessionPolicy.track_n_hyps
 
 
@@ -2194,6 +2269,7 @@ def phase_fleet(dev, seed, preset=None, size=FLEET):
 
     from esac_tpu_torch.data.datasets import SyntheticScene
     from esac_tpu_torch.fleet import FleetPolicy, FleetRouter, Replica
+    from esac_tpu_torch.obs import render_prometheus
     from esac_tpu_torch.ransac.config import RansacConfig
     from esac_tpu_torch.registry.cache import tree_nbytes
     from esac_tpu_torch.registry.hosttier import EXACT_KEYS, HostWeightTier, compress_tree
@@ -2276,6 +2352,10 @@ def phase_fleet(dev, seed, preset=None, size=FLEET):
             reps.append(Replica(f"r{i}", disp, registry=reg))
         signatures = [reg.compile_cache_size() for reg in regs]
         router = FleetRouter(reps, FleetPolicy(poll_ms=2.0))
+        # Phase 10 (e): the router's loop ticks this timeline and evaluates
+        # the default rules between polls for the whole phase.
+        timeline = router.obs.attach_timeline(window_s=FLEET_WINDOW_S)
+        rules = router.obs.attach_health_rules()
         disps = [rep.dispatcher for rep in reps]
         sync(dev)
         result["setup_s"] = time.perf_counter() - t0
@@ -2620,14 +2700,587 @@ def phase_fleet(dev, seed, preset=None, size=FLEET):
             f"winning scene; retriever forward {retr_ms:.3f} ms at batch 1; retriever "
             f"signatures {fn._cache_size()} (enrollment batch, batch 1), none new")
 
+        text = render_prometheus(router.obs.snapshot())
+        collectors = sorted(router.obs.tables()[1])
+        missing = [name for name in collectors if f"# COLLECTOR {name} (" not in text]
+        ticks, windows = timeline.ticks, len(timeline.windows())
+        if ticks < 3 or windows < 2 or missing or rules.snapshot()["eval_errors"]:
+            raise AssertionError(f"fleet obs: {ticks} ticks, {windows} windows, collectors "
+                                 f"missing from the page {missing}, {rules.snapshot()}")
         router.close()
         books = router.fleet_totals()
         if books["served"] != books["offered"]:
             raise AssertionError(f"fleet books {books}")
+        alerts = rules.snapshot()
+        result["obs"] = dict(ticks=ticks, windows=windows, window_s=FLEET_WINDOW_S,
+                             collectors=collectors, rules=alerts["rules"],
+                             alert_events=len(alerts["events"]),
+                             active=sorted(alerts["active"]),
+                             prometheus_lines=len(text.splitlines()))
+        log(f"[fleet] obs: the router's loop ticked {ticks} windows of {FLEET_WINDOW_S} s and "
+            f"evaluated {alerts['rules']} ({len(alerts['events'])} alert events, active "
+            f"{sorted(alerts['active'])}); the Prometheus page ({len(text.splitlines())} "
+            f"lines) names all {len(collectors)} collectors")
         result.update(legs=legs, books=books, launches=launches,
                       seconds=time.perf_counter() - t_phase)
     log(f"[fleet] 6 legs passed in {result['seconds']:.1f} s; launches {launches}")
     return result
+
+
+# Phase 10: the expert-parallel path (esac_tpu_torch.parallel).  Leg a runs
+# in this process (one NCCL rank); legs b and c in 2 spawned gloo ranks that
+# share the card.  Shapes: config #2 (7 experts) for a and c, config #4 (50
+# experts) for b, all at the serving width.
+PARALLEL = dict(height=480, width=640, arch="ref", n_hyps=256, experts_a=7, buckets_a=(1, 4),
+                experts_b=50, frames_b=4, routed_k=2, pad_experts=7, pad_capacity=4,
+                train_experts=7, train_frames=2, train_steps=2, capacity=2, reps=10)
+PARALLEL_SEED = 130_000
+# Routed-sharded poses against the single-device routed entry (radians,
+# meters): the two run the same expert CNNs over the same capacity blocks,
+# but the CNN stage is not promised bit for bit across processes (cuDNN).
+ROUTED_POSE_ATOL = 1e-4
+RANKS = 2
+
+
+def _preset(size, num_experts):
+    from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
+    from esac_tpu_torch.registry.manifest import ScenePreset
+
+    return ScenePreset(height=size["height"], width=size["width"], num_experts=num_experts,
+                       gating_channels=GATING_PRESETS[size["arch"]]["channels"],
+                       compute_dtype="bfloat16", **EXPERT_PRESETS[size["arch"]])
+
+
+def _expert_nets(preset, seed, ids, dev):
+    """Experts ``ids`` of a random-init scene, each initialized on the
+    device from its own seed (seed * 1000 + global index), so any rank that
+    builds expert m builds the same one."""
+    import torch
+
+    from esac_tpu_torch.models.expert import ExpertNet
+
+    nets = []
+    for m in ids:
+        torch.manual_seed(seed * 1000 + m)
+        with torch.device(dev):
+            nets.append(ExpertNet(stem_channels=preset.stem_channels,
+                                  head_channels=preset.head_channels,
+                                  head_depth=preset.head_depth,
+                                  compute_dtype=torch.bfloat16).eval())
+    return nets
+
+
+def _synth_maps(rng, B, M, height, width, true_of):
+    """B frames x M maps: map ``true_of(b)`` frame b's coordinates, the
+    others cell-scrambled decoys (numpy).  Returns coords (B, M, N, 3),
+    pixels (N, 2), focals (B,), c (2,)."""
+    f, c = 525.0 * width / 640.0, np.array([width / 2.0, height / 2.0], np.float32)
+    N = (height // 8) * (width // 8)
+    coords = np.empty((B, M, N, 3), np.float32)
+    for b in range(B):
+        X, pixels, _, _ = synth_frame(rng, f, c, height, width)
+        for m in range(M):
+            coords[b, m] = X if m == true_of(b) else X[rng.permutation(N)]
+    return coords, pixels, np.full(B, f, np.float32), c
+
+
+def _launch_counts():
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def _zero_launches():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _expect(dev, got, want, what, total=None):
+    """Fail unless the launch counts ``got`` are ``want`` (0 off the card);
+    add them to ``total`` (the leg's sharded launches)."""
+    want = want if dev.type == "cuda" else dict.fromkeys(KERNELS, 0)
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+    if total is not None:
+        for k, v in got.items():
+            total[k] += v
+
+
+def _host_ms(dev, fn, reps, warmup=1):
+    """Mean host milliseconds of ``fn()`` over ``reps`` calls after
+    ``warmup`` calls, synchronized before the first timed call and after
+    the last (collectives: every rank calls)."""
+    for _ in range(warmup):
+        fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _bit_rows(got: dict, want: dict, keys, what):
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {k} differs from the unsharded entry")
+
+
+def _winner_ms(dev, mesh, B, reps):
+    """Host ms of one argmax all-reduce (MAX, MIN, SUM) over B frames."""
+    import torch
+
+    from esac_tpu_torch.parallel.esac_sharded import _winner_allreduce
+    from esac_tpu_torch.parallel.mesh import axis_group
+
+    score = torch.rand(B, device=dev)
+    g = torch.arange(B, device=dev)
+    pose = torch.rand(B, 3, device=dev)
+    group = axis_group(mesh, "expert")
+    return _host_ms(dev, lambda: _winner_allreduce(score, g, pose, pose, 64, group), reps)
+
+
+def _leg_a(dev, seed, size):
+    """World size 1 (NCCL on the card): the sharded coords-level frames at
+    config #2's shape, buckets of 1 and 4 frames, bit-identical to
+    esac_infer_frames; and make_sharded_serve_fn behind a dispatcher."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from esac_tpu_torch.parallel import esac_infer_sharded_frames, initialize_multihost, make_mesh
+    from esac_tpu_torch.parallel.multihost import free_port
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import esac_infer_frames
+    from esac_tpu_torch.ransac.kernel import frame_generators
+    from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher, make_sharded_serve_fn
+
+    H, W, M = size["height"], size["width"], size["experts_a"]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend, dev)
+    out = {"backend": backend, "world": 1, "buckets": {}}
+    launches = dict.fromkeys(KERNELS, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        cfg = RansacConfig(n_hyps=size["n_hyps"], scoring_impl="fused_select")
+        rng = np.random.default_rng(seed + PARALLEL_SEED)
+        for B in size["buckets_a"]:
+            coords, pixels, f, c = _synth_maps(rng, B, M, H, W, lambda b: b % M)
+            seeds = np.arange(B) + seed + PARALLEL_SEED + 100 * B
+            args = [torch.as_tensor(x, device=dev) for x in (coords, pixels, f, c)]
+            got, n = counted(dev, "fused_select", f"leg a sharded B={B}",
+                             lambda: esac_infer_sharded_frames(mesh, seeds, *args[:3], args[3],
+                                                               cfg, device=dev))
+            for k, v in n.items():
+                launches[k] += v
+            want, _ = counted(dev, "fused_select", f"leg a unsharded B={B}",
+                              lambda: esac_infer_frames(frame_generators(seeds, dev),
+                                                        torch.zeros((B, M), device=dev),
+                                                        *args, cfg, device=dev))
+            _bit_rows({k: v.cpu() for k, v in got.items()},
+                      {k: want[k].cpu() for k in got}, ("rvec", "tvec", "expert", "score"),
+                      f"leg a B={B}")
+            if got["expert"].cpu().tolist() != [b % M for b in range(B)]:
+                raise AssertionError(f"leg a B={B}: winners {got['expert'].tolist()}")
+            out["buckets"][B] = dict(
+                sharded_ms=_host_ms(dev, lambda: esac_infer_sharded_frames(
+                    mesh, seeds, *args[:3], args[3], cfg, device=dev), 3),
+                unsharded_ms=_host_ms(dev, lambda: esac_infer_frames(
+                    frame_generators(seeds, dev), torch.zeros((B, M), device=dev), *args, cfg,
+                    device=dev), 3),
+                collectives_ms=_winner_ms(dev, mesh, B, size["reps"]))
+        # The serve function behind a dispatcher (world 1: nothing to lead).
+        B = max(size["buckets_a"])
+        disp_cfg = dataclasses.replace(cfg, frame_buckets=(B,))
+        frames = [{"seed": np.int64(seeds[b]), "coords_all": coords[b], "pixels": pixels,
+                   "f": np.float32(f[b])} for b in range(B)]
+        disp = MicroBatchDispatcher(make_sharded_serve_fn(mesh, c, disp_cfg, device=dev),
+                                    disp_cfg, start_worker=False, device=dev)
+        out["dispatch_ms"] = []  # the first dispatch, then a warm one
+        for _ in range(2):
+            _zero_launches()
+            t0 = time.perf_counter()
+            rows = disp.infer_many(frames)
+            out["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+            _expect(dev, _launch_counts(), LAUNCHES_PER_CALL["fused_select"],
+                    "leg a dispatcher", launches)
+            for b, row in enumerate(rows):
+                _bit_rows(row, {k: want[k][b].cpu() for k in ("rvec", "tvec", "expert", "score")},
+                          ("rvec", "tvec", "expert", "score"), f"leg a dispatcher frame {b}")
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if dev.type == "cuda" else 0.0
+        out["launches"] = launches  # the direct sharded calls and the dispatches
+    finally:
+        dist.destroy_process_group()
+    log(f"[parallel] a: world 1 ({backend}): sharded frames bit-identical to esac_infer_frames "
+        f"at buckets {list(size['buckets_a'])} and through the dispatcher; " + "; ".join(
+            f"B={B} sharded {r['sharded_ms']:.2f} ms, unsharded {r['unsharded_ms']:.2f} ms, "
+            f"winner all-reduce {r['collectives_ms']:.4f} ms" for B, r in out["buckets"].items())
+        + f"; dispatcher {out['dispatch_ms'][0]:.1f} ms first, "
+          f"{out['dispatch_ms'][1]:.1f} ms warm")
+    return out
+
+
+def _check_collectives(dev, rank):
+    """MAX, MIN and SUM all-reduces of float32 and int64 tensors on this
+    rank's device (gloo carries CUDA tensors through host memory) against
+    their known results, before anything relies on them."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    want = {"max": [world - 1.0, 0.0], "min": [0.0, -(world - 1.0)],
+            "sum": [world * (world - 1) / 2.0, -world * (world - 1) / 2.0]}
+    for name, op in (("max", dist.ReduceOp.MAX), ("min", dist.ReduceOp.MIN),
+                     ("sum", dist.ReduceOp.SUM)):
+        for dtype in (torch.float32, torch.int64):
+            x = torch.tensor([rank, -rank], dtype=dtype, device=dev)
+            dist.all_reduce(x, op=op)
+            if [float(v) for v in x.tolist()] != want[name]:
+                raise AssertionError(f"rank {rank}: {name} all-reduce of {dtype} on {dev} "
+                                     f"gave {x.tolist()}, expected {want[name]}")
+    return sorted(want)
+
+
+def _map_expert(coords, grid):
+    """An expert whose output IS one coordinate map, whatever the image."""
+    return lambda images: coords.reshape(1, *grid, 3).expand(images.shape[0], *grid, 3)
+
+
+def _rank_leg_b(rank, mesh, dev, seed, size):
+    """Config #4 over the ranks: 50 experts, half on each; coords-level
+    sharded serving behind a dispatcher on rank 0 (the other rank
+    following), routed-sharded top-2 serving, and 7 experts padded to 8."""
+    import torch
+    from torch import nn
+
+    from esac_tpu_torch.models.gating import GatingNet
+    from esac_tpu_torch.parallel import (
+        esac_infer_routed, esac_infer_sharded_frames, follow,
+        make_esac_infer_routed_frames_sharded, make_esac_infer_sharded_frames,
+        pad_experts_for_mesh, pad_gating_logits,
+    )
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import esac_infer_frames
+    from esac_tpu_torch.ransac.kernel import frame_generators
+    from esac_tpu_torch.registry.serving import make_routed_scene_bucket_fn
+    from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher, make_sharded_serve_fn
+
+    H, W, M, B = size["height"], size["width"], size["experts_b"], size["frames_b"]
+    preset = _preset(size, M)
+    m = M // RANKS
+    lo = rank * m
+    local = _expert_nets(preset, seed, range(lo, lo + m), dev)
+    cfg = RansacConfig(n_hyps=size["n_hyps"], scoring_impl="fused_select")
+    rng = np.random.default_rng(seed + PARALLEL_SEED + 7)  # the same on every rank
+    coords, pixels, f, c = _synth_maps(rng, B, M, H, W, lambda b: (13 * b + 3) % M)
+    seeds = np.arange(B) + seed + PARALLEL_SEED + 1000
+    out = {"experts_local": m, "weights_bytes_local": sum(
+        p.numel() * 4 for net in local for p in net.parameters())}
+    sel = LAUNCHES_PER_CALL["fused_select"]
+    launches = dict.fromkeys(KERNELS, 0)
+
+    # (1) Coords-level sharded serving: the dispatcher on rank 0 leads.
+    frames = [{"seed": np.int64(seeds[b]), "coords_all": coords[b], "pixels": pixels,
+               "f": np.float32(f[b])} for b in range(B)]
+    _zero_launches()
+    if rank == 0:  # a first dispatch, then a warm one
+        fn = make_sharded_serve_fn(mesh, c, cfg, device=dev)
+        disp = MicroBatchDispatcher(fn, cfg, start_worker=False, device=dev)
+        out["coords_dispatch_ms"] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rows = disp.infer_many(frames)
+            out["coords_dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        fn.stop()
+    else:
+        follow(make_esac_infer_sharded_frames(mesh, c, cfg, as_tree=True, device=dev), dev)
+    _expect(dev, _launch_counts(), {k: 2 * n for k, n in sel.items()},
+            f"rank {rank} coords-level dispatches", launches)
+    args = [torch.as_tensor(x, device=dev) for x in (coords, pixels, f, c)]
+    out["coords_sharded_ms"] = _host_ms(dev, lambda: esac_infer_sharded_frames(
+        mesh, seeds, *args[:3], args[3], cfg, device=dev), 3)
+    out["collectives_ms"] = _winner_ms(dev, mesh, B, size["reps"])
+    if rank == 0:
+        want = esac_infer_frames(frame_generators(seeds, dev), torch.zeros((B, M), device=dev),
+                                 *args, cfg, device=dev)
+        for b, row in enumerate(rows):
+            _bit_rows(row, {k: want[k][b].cpu() for k in ("rvec", "tvec", "expert", "score")},
+                      ("rvec", "tvec", "expert", "score"), f"leg b coords frame {b}")
+        if want["expert"].cpu().tolist() != [(13 * b + 3) % M for b in range(B)]:
+            raise AssertionError(f"leg b: winners {want['expert'].tolist()}")
+        out["coords_unsharded_ms"] = _host_ms(dev, lambda: esac_infer_frames(
+            frame_generators(seeds, dev), torch.zeros((B, M), device=dev), *args, cfg,
+            device=dev), 3)
+
+    # (2) Routed-sharded top-k serving from images.
+    torch.manual_seed(seed * 1000 + 999)
+    with torch.device(dev):
+        gating = GatingNet(M, preset.gating_channels, compute_dtype=torch.bfloat16).eval()
+    images = torch.as_tensor(rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32), device=dev)
+    with torch.inference_mode():
+        logits = gating(images)
+    centers = torch.zeros((M, 3), device=dev)
+    seeds2 = seeds + 100
+    routed = make_esac_infer_routed_frames_sharded(mesh, local, centers, cfg,
+                                                   k=size["routed_k"], device=dev)
+    _zero_launches()
+    got = routed(seeds2, logits, images, args[2], args[1], args[3])
+    _expect(dev, _launch_counts(), sel, f"rank {rank} routed-sharded dispatch", launches)
+    out["routed_sharded_ms"] = _host_ms(dev, lambda: routed(seeds2, logits, images, args[2],
+                                                            args[1], args[3]), 2)
+    if rank == 0:
+        others = _expert_nets(preset, seed, range(m, M), dev)
+        params = {"expert": nn.ModuleList(local + others), "gating": gating, "centers": centers,
+                  "f": torch.tensor(float(f[0]), device=dev), "c": args[3]}
+        single = make_routed_scene_bucket_fn(preset, cfg, size["routed_k"], dev)
+        batch = {"image": images, "seed": seeds2}
+        want = single(params, batch)
+        for k in ("expert", "experts_evaluated"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"leg b routed: {k} {got[k].tolist()} != single-device "
+                                     f"{want[k].tolist()}")
+        diff = {k: float((got[k] - want[k]).abs().max()) for k in ("rvec", "tvec")}
+        diff["score"] = float((got["score"] - want["score"]).abs().max())
+        if max(diff["rvec"], diff["tvec"]) > ROUTED_POSE_ATOL:
+            raise AssertionError(f"leg b routed: pose max |diff| {diff} > {ROUTED_POSE_ATOL}")
+        out["routed_max_abs_diff"] = diff
+        out["routed_bit_equal"] = all(torch.equal(got[k], want[k])
+                                      for k in ("rvec", "tvec", "score"))
+        out["routed_single_ms"] = _host_ms(dev, lambda: single(params, batch), 2)
+        out["routed_experts_evaluated"] = got["experts_evaluated"].tolist()
+        del others, params
+
+    # (3) Padding: 7 experts padded to 8, the true map at expert 0 and the
+    # pad a copy of it: only its -inf logit keeps it from winning.
+    P = size["pad_experts"]
+    pc, ppx, pf, pcc = _synth_maps(np.random.default_rng(seed + PARALLEL_SEED + 9), 1, P, H, W,
+                                   lambda b: 0)
+    grid = (H // 8, W // 8)
+    maps = torch.as_tensor(pc[0], device=dev)
+    experts, pcenters, M_pad = pad_experts_for_mesh([_map_expert(x, grid) for x in maps],
+                                                    torch.zeros((P, 3), device=dev), RANKS)
+    padded = esac_infer_routed(mesh, experts, pcenters, size["pad_capacity"], cfg, device=dev)
+    _zero_launches()
+    pout = padded(seeds + 200, pad_gating_logits(torch.zeros((B, P), device=dev), M_pad),
+                  torch.zeros((B, 1, 1, 3), device=dev), torch.full((B,), float(pf[0]), device=dev),
+                  torch.as_tensor(ppx, device=dev), torch.as_tensor(pcc, device=dev))
+    _expect(dev, _launch_counts(), sel, f"rank {rank} padded dispatch", launches)
+    if pout["expert"].tolist() != [0] * B or not bool(
+            (pout["experts_evaluated"] == M_pad - 1).any(1).all()):
+        raise AssertionError(f"leg b padding: winners {pout['expert'].tolist()}, evaluated "
+                             f"{pout['experts_evaluated'].tolist()}")
+    out["padded"] = dict(M=P, M_pad=M_pad, winners=pout["expert"].tolist())
+    out["launches"] = launches
+    return out
+
+
+def _truncated_loss(aux, m_rank, capacity):
+    """Dense per-expert losses truncated to each rank's top-``capacity``
+    local experts by gating mass, per frame, averaged over the frames:
+    the routed loss on the single-device loss's own terms."""
+    import torch
+
+    from esac_tpu_torch.ransac.esac import _top_experts
+
+    g, L = aux["gating_probs"], aux["per_expert_loss"]
+    keep = torch.zeros_like(g, dtype=torch.bool)
+    for lo in range(0, g.shape[1], m_rank):
+        top = lo + _top_experts(g[:, lo:lo + m_rank], capacity)
+        keep.scatter_(1, top, True)
+    return float(torch.where(keep, g * L, 0.0).sum(1).mean().detach())
+
+
+def _rank_leg_c(rank, mesh, dev, seed, size):
+    """Sharded training at config #2's shape, padded to 8 experts: dense
+    and capacity 2, two steps each, against the single-device step."""
+    import copy
+
+    import torch
+
+    from esac_tpu_torch.data.synthetic import output_pixel_grid
+    from esac_tpu_torch.parallel import (
+        make_sharded_esac_train_step, pad_experts_for_mesh, shard_esac_params,
+    )
+    from esac_tpu_torch.parallel.esac_sharded import PaddedGating
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.esac import esac_train_loss_frames
+    from esac_tpu_torch.registry.serving import init_scene_params, scene_forward
+    from esac_tpu_torch.train import make_esac_train_step, step_generators
+
+    H, W, steps, B = size["height"], size["width"], size["train_steps"], size["train_frames"]
+    params = init_scene_params(_preset(size, size["train_experts"]), seed=seed, device=dev)
+    experts, centers, M_pad = pad_experts_for_mesh(params["expert"], params["centers"], RANKS)
+    pristine = (experts, PaddedGating(params["gating"], M_pad))
+    m = M_pad // RANKS
+    lo = rank * m
+    images, R_gts, t_gts = _train_frames(dev, np.random.default_rng(seed + PARALLEL_SEED + 11),
+                                         steps, B, H, W)
+    pixels = output_pixel_grid(H, W, 8, device=dev)
+    cfg = RansacConfig(n_hyps=size["n_hyps"], train_refine_iters=1, alpha=0.5,
+                       scoring_impl="pallas")
+    step_seed = seed * 7919
+    out = {"M": size["train_experts"], "M_pad": M_pad, "runs": {}}
+    launches = dict.fromkeys(KERNELS, 0)
+    for mode, capacity in (("dense", None), (f"capacity{size['capacity']}", size["capacity"])):
+        ex, ga = copy.deepcopy(pristine)
+        ex.train()
+        ga.train()
+        mine, _ = shard_esac_params(mesh, ex, ga)  # Adam over this rank's experts and gating
+        opt = torch.optim.Adam(list(mine.parameters()) + list(ga.parameters()),
+                               lr=TRAIN_SIZE["lr"])
+        step = make_sharded_esac_train_step(mesh, ex, ga, centers, opt, cfg, pixels, params["f"],
+                                            params["c"], capacity=capacity,
+                                            clip_norm=TRAIN_SIZE["clip_norm"], device=dev)
+        losses, step_ms, grads_nonzero = [], [], []
+        for k in range(steps):
+            _zero_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            loss = float(step(step_seed + k, images[k], R_gts[k], t_gts[k]))
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            _expect(dev, _launch_counts(), LAUNCHES_PER_CALL["pallas"],
+                    f"rank {rank} {mode} step {k}", launches)
+            if not np.isfinite(loss):
+                raise AssertionError(f"rank {rank} {mode} step {k}: loss {loss}")
+            nets = [(f"expert {i}", ex[i]) for i in range(lo, lo + m) if i < out["M"]]
+            nonzero = []
+            for name, net in nets + [("gating", ga)]:
+                # An expert no frame routed to has no gradient.
+                grads = [p.grad for p in net.parameters() if p.grad is not None]
+                if any(not _finite(g) for g in grads):
+                    raise AssertionError(f"rank {rank} {mode} step {k}: non-finite gradient "
+                                         f"on {name}")
+                if any(bool((g != 0).any()) for g in grads):
+                    nonzero.append(name)
+            # Dense: every real local net has a gradient; routed: the gating
+            # net and the experts some frame selected.
+            if mode == "dense" and len(nonzero) != len(nets) + 1 or "gating" not in nonzero:
+                raise AssertionError(f"rank {rank} {mode} step {k}: zero gradient; non-zero "
+                                     f"on {nonzero}")
+            grads_nonzero.append(nonzero)
+            losses.append(loss)
+        out["runs"][mode] = dict(losses=losses, step_ms=step_ms, grads_nonzero=grads_nonzero)
+    # The collectives of a dense step, timed apart: the coordinate gather
+    # and the gating-gradient all-reduce.
+    from esac_tpu_torch.parallel.mesh import axis_group
+    from esac_tpu_torch.parallel.train_sharded import _GatherExperts, _allreduce_grads
+
+    local_coords = torch.zeros((B, m, (H // 8) * (W // 8), 3), device=dev)
+    with torch.no_grad():
+        out["gather_ms"] = _host_ms(dev, lambda: _GatherExperts.apply(
+            local_coords, lo, M_pad, axis_group(mesh, "expert")), size["reps"])
+    gating_params = list(pristine[1].parameters())
+    for p in gating_params:
+        p.grad = torch.zeros_like(p)
+    out["gating_grad_allreduce_ms"] = _host_ms(dev, lambda: _allreduce_grads(gating_params, None),
+                                               size["reps"])
+    if rank == 0:
+        ex, ga = copy.deepcopy(pristine)
+        ex.train()
+        ga.train()
+        scene = {"expert": ex, "gating": ga, "centers": centers, "f": params["f"],
+                 "c": params["c"]}
+        opt = torch.optim.Adam(list(ex.parameters()) + list(ga.parameters()), lr=TRAIN_SIZE["lr"])
+        single = make_esac_train_step(scene, opt, cfg, pixels,
+                                      clip_norm=TRAIN_SIZE["clip_norm"], device=dev)
+        ref = [float(single(step_seed + k, images[k], R_gts[k], t_gts[k])) for k in range(steps)]
+        ex, ga = copy.deepcopy(pristine)
+        coords, logits = scene_forward({"expert": ex, "gating": ga, "centers": centers}, images[0])
+        _, aux = esac_train_loss_frames(step_generators(step_seed, B, dev), logits, coords,
+                                        pixels, params["f"].expand(B), params["c"], R_gts[0],
+                                        t_gts[0], cfg, device=dev)
+        ref_routed = _truncated_loss(aux, m, size["capacity"])
+        rel = {"dense": [abs(a - b) / abs(b) for a, b in zip(out["runs"]["dense"]["losses"], ref)],
+               f"capacity{size['capacity']}": [
+                   abs(out["runs"][f"capacity{size['capacity']}"]["losses"][0] - ref_routed)
+                   / abs(ref_routed)]}
+        if max(max(v) for v in rel.values()) > STEP_LOSS_RTOL:
+            raise AssertionError(f"leg c: sharded losses vs single device {rel} > "
+                                 f"{STEP_LOSS_RTOL}")
+        out.update(single_losses=ref, single_routed_loss=ref_routed, loss_rel_diff=rel)
+    out["launches"] = launches
+    return out
+
+
+def _parallel_rank(rank, workdir, seed, size, device):
+    """One of the spawned ranks of legs b and c (its gloo group initialized
+    on ``device``); writes its results to ``workdir``."""
+    import torch
+
+    from esac_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(device)
+    out = {"rank": rank, "collectives_checked": _check_collectives(dev, rank)}
+    mesh = make_mesh(1, RANKS)
+    for leg, fn in (("b", _rank_leg_b), ("c", _rank_leg_c)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[leg] = fn(rank, mesh, dev, seed, size)
+        out[leg]["seconds"] = time.perf_counter() - t0
+        out[leg]["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                                if dev.type == "cuda" else 0.0)
+    (pathlib.Path(workdir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_parallel(dev, seed, workflow, fleet, size=PARALLEL):
+    """Phase 10 (module docstring): legs a-c here; d and e were run inside
+    phases 7 and 9 (the sharded evaluation, the fleet's timeline and rules)
+    and are checked and reported here."""
+    from esac_tpu_torch.parallel import spawn_ranks
+
+    t_phase = time.perf_counter()
+    legs = {"a": _leg_a(dev, seed, size)}
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="esac_parallel_") as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(_parallel_rank, RANKS, args=(tmp, seed, size, device), backend="gloo",
+                    device=device)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(RANKS)]
+    for leg in ("b", "c"):
+        legs[leg] = dict(world=RANKS, backend="gloo", device=device,
+                         ranks=[r[leg] for r in ranks])
+    legs["b"]["collectives_checked"] = ranks[0]["collectives_checked"]
+    legs["d"] = workflow["sharded_eval"]
+    legs["e"] = fleet["obs"]
+    launches = {k: legs["a"]["launches"][k] + sum(r[leg]["launches"][k] for r in ranks
+                                                  for leg in ("b", "c"))
+                for k in KERNELS}
+    b0, c0 = ranks[0]["b"], ranks[0]["c"]
+    log(f"[parallel] b: 2 gloo ranks on {device}: {size['experts_b']} experts, "
+        f"{b0['experts_local']} a rank ({b0['weights_bytes_local'] / 2**30:.2f} GiB of f32 "
+        f"weights each); MAX/MIN/SUM all-reduces checked; coords-level dispatch "
+        f"{b0['coords_dispatch_ms'][0]:.1f} ms first, {b0['coords_dispatch_ms'][1]:.1f} ms "
+        f"warm, bit-identical to esac_infer_frames "
+        f"({b0['coords_unsharded_ms']:.1f} ms unsharded, {b0['coords_sharded_ms']:.1f} ms "
+        f"sharded direct); routed top-{size['routed_k']} {b0['routed_sharded_ms']:.1f} ms "
+        f"(single device {b0['routed_single_ms']:.1f} ms), winners and evaluated sets equal, "
+        f"max |diff| {b0['routed_max_abs_diff']}, bit-equal {b0['routed_bit_equal']}; "
+        f"padded {b0['padded']}; winner all-reduce {b0['collectives_ms']:.3f} ms; peak GiB "
+        f"{[round(r['b']['peak_gib'], 2) for r in ranks]}; ranks up and done in {spawn_s:.1f} s")
+    log(f"[parallel] c: sharded training {c0['M']} experts padded to {c0['M_pad']}: "
+        + "; ".join(f"{mode} losses {run['losses']} step ms "
+                    f"{[round(x, 1) for x in run['step_ms']]}"
+                    for mode, run in c0["runs"].items())
+        + f"; single device {c0['single_losses']} (routed truncation "
+        f"{c0['single_routed_loss']:.4f}), relative {c0['loss_rel_diff']}; gather "
+        f"{c0['gather_ms']:.3f} ms, gating-gradient all-reduce "
+        f"{c0['gating_grad_allreduce_ms']:.3f} ms; peak GiB "
+        f"{[round(r['c']['peak_gib'], 2) for r in ranks]}")
+    log(f"[parallel] d: test_esac --sharded at world size 1 = the dense evaluation "
+        f"({legs['d']['frames']} frames, winners {legs['d']['winners']}); e: the fleet's "
+        f"timeline ticked {legs['e']['ticks']} windows, rules {legs['e']['rules']}, "
+        f"{len(legs['e']['collectors'])} collectors all on the Prometheus page; sharded "
+        f"launches {launches}")
+    return dict(legs=legs, launches=launches, spawn_s=spawn_s,
+                seconds=time.perf_counter() - t_phase)
 
 
 def main(argv=None) -> int:
@@ -2651,6 +3304,7 @@ def main(argv=None) -> int:
         workflow = phase_workflow(dev, args.seed)
         server = phase_server(dev, args.seed)
         fleet = phase_fleet(dev, args.seed)
+        parallel = phase_parallel(dev, args.seed, workflow, fleet)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -2680,6 +3334,7 @@ def main(argv=None) -> int:
             "workflow_launches": workflow["launch_totals"][name],
             "server_launches": server["launches"][name],
             "fleet_launches": fleet["launches"][name],
+            "sharded_launches": parallel["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -2700,7 +3355,8 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
-                                       workflow=workflow, server=server, fleet=fleet),
+                                       workflow=workflow, server=server, fleet=fleet,
+                                       parallel=parallel),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -2718,6 +3374,7 @@ def main(argv=None) -> int:
     print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
     print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
     print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))
+    print(json.dumps({"parallel": {"device": name, "nvidia_smi": smi, **parallel}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,8 +14,7 @@ entries ``esac_infer_topk[_frames]``, ``esac_infer_routed_frames[_prior]``,
 ``registry.serving.make_scene_bucket_fn`` /
 ``make_routed_scene_bucket_fn``) run on the card unless the caller passes
 ``device="cpu"``; they raise when CUDA is missing instead of falling back.
-``parallel.esac_sharded.route_frames_to_experts`` is the routed path's
-capacity dispatch.  The two soft-inlier scoring
+The two soft-inlier scoring
 kernels are hand-written CUDA (``csrc/soft_inlier.cu``), built with
 ``nvcc`` at first use (``_build.py``).
 
@@ -44,9 +43,18 @@ sessions on a shrunken hypothesis budget with motion priors; and
 ``retrieval`` answers image-only requests (a retriever CNN posterior over
 enrolled scenes, ``FleetRouter.infer_image``).
 
+Expert parallelism: ``parallel`` splits the experts over
+``torch.distributed`` ranks on a ("data", "expert") ``DeviceMesh`` --
+sharded dense and routed inference whose winner is an all-reduce, sharded
+training, the sharded serve functions (``serve.dispatcher.
+make_sharded_serve_fn``, ``registry.serving.make_registry_sharded_serve_fn``)
+-- and ``obs`` adds the windowed timeline, the health rules and the
+Prometheus page the fleet router drives.
+
 Workflow: ``data`` (synthetic and on-disk scenes, augmentation),
 ``utils.checkpoint`` (torch checkpoints, crash-atomic train states),
 ``utils.profiling``, ``cli`` and ``scripts`` (``train_expert``,
 ``train_gating``, ``train_esac``, ``test_esac``, ``convert_checkpoint``;
-each ``main(argv)``, run as ``python -m esac_tpu_torch.scripts.<name>``).
+each ``main(argv)``, run as ``python -m esac_tpu_torch.scripts.<name>``;
+``train_esac`` and ``test_esac`` take ``--sharded``).
 """

@@ -2,17 +2,26 @@
 ``esac_tpu/cli.py``): ``esac_tpu_torch/scripts/{train_expert, train_gating,
 train_esac, test_esac}.py``, run as ``python -m esac_tpu_torch.scripts.<name>``.
 
-The flags are the JAX scripts', without the ones this package has no
-counterpart for yet (``--backend``, ``--sharded``, ``--capacity``,
-``--devices``).  Scripts run on the card; ``--cpu`` runs the plain PyTorch
-versions on the CPU, and without it a machine with no CUDA raises.
+The flags are the JAX scripts', without ``--backend`` (the C++ backend
+has no counterpart yet).  Scripts run on the card; ``--cpu`` runs the
+plain PyTorch versions on the CPU, and without it a machine with no CUDA
+raises.
+
+``--sharded`` (``train_esac``, ``test_esac``) runs the expert-sharded path
+of ``esac_tpu_torch.parallel`` over ``torch.distributed`` ranks
+(:func:`run_sharded`): under ``torchrun`` a script reads the environment;
+otherwise ``--devices N`` spawns N local ranks itself (gloo with --cpu,
+NCCL on the card, one card per rank: more ranks than cards is an error)
+and no ``--devices`` runs one rank in process.  Rank 0 prints and writes.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import math
+import os
 import time
 
 import numpy as np
@@ -204,13 +213,14 @@ def _params(nets) -> dict:
     return {k: net.state_dict() for k, net in nets.items()}
 
 
-def resume_train_state(args, path, nets, opt, device, timer=None) -> int:
+def resume_train_state(args, path, nets, opt, device, timer=None, verbose=True) -> int:
     """The iteration a trainer starts at: 0, or under --resume the train
     state's at ``path``, its params loaded into ``nets`` (a module, or a
     dict of modules by name) and its optimizer state into ``opt``.  The
     state is read into host memory: ``load_state_dict`` puts each tensor
     beside its parameter, and Adam's step counts stay on the host, where a
-    fresh Adam keeps them."""
+    fresh Adam keeps them.  ``verbose`` False keeps it quiet (ranks other
+    than 0 of a sharded run)."""
     if not args.resume:
         return 0
     with timed(timer, "load", device):
@@ -221,12 +231,13 @@ def resume_train_state(args, path, nets, opt, device, timer=None) -> int:
             for k, net in nets.items():
                 net.load_state_dict(params[k])
         opt.load_state_dict(opt_state)
-    print(f"resumed {path} at iteration {start_it}")
+    if verbose:
+        print(f"resumed {path} at iteration {start_it}")
     return start_it
 
 
 def train_loop(args, path, nets, opt, config, n_frames, step, describe, device, start_it=0,
-               timer=None, finish=None, width=7):
+               timer=None, finish=None, width=7, before_save=None, writer=True):
     """The three trainers' loop, from ``start_it`` to --iterations.
 
     Each iteration draws --batch frame indices below ``n_frames`` from the
@@ -237,12 +248,18 @@ def train_loop(args, path, nets, opt, config, n_frames, step, describe, device, 
     ``config(loss)``) is saved at ``path`` every --checkpoint-every
     iterations and at the end, where ``finish()`` writes whatever the
     script adds.  --stop-after ends the run early.  ``timer`` times each
-    iteration and the final save.  Returns the last loss, or None when a
-    resumed run was already at --iterations."""
+    iteration and the final save.  A sharded run passes ``before_save``,
+    called on every rank before each save (it assembles the state), and
+    ``writer`` False on every rank but 0, which then neither saves nor
+    prints.  Returns the last loss, or None when a resumed run was already
+    at --iterations."""
 
     def save(iteration, loss):
-        save_train_state(path, _params(nets), config(loss), opt.state_dict(),
-                         iteration=iteration)
+        if before_save is not None:
+            before_save()
+        if writer:
+            save_train_state(path, _params(nets), config(loss), opt.state_dict(),
+                             iteration=iteration)
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
@@ -252,31 +269,103 @@ def train_loop(args, path, nets, opt, config, n_frames, step, describe, device, 
             continue
         with timed(timer, "iteration", device):
             loss = step(it, torch.as_tensor(idx, device=device))
-        if it % max(1, args.iterations // 20) == 0:
+        if writer and it % max(1, args.iterations // 20) == 0:
             print(f"iter {it:{width}d}  {describe(it, loss)}  ({time.time() - t0:.0f}s)",
                   flush=True)
         last_it = it + 1
         if (args.checkpoint_every and last_it % args.checkpoint_every == 0
                 and last_it < args.iterations):
             save(last_it, loss)
-            print(f"checkpoint {path} @ iter {last_it}", flush=True)
+            if writer:
+                print(f"checkpoint {path} @ iter {last_it}", flush=True)
         if args.stop_after and last_it - start_it >= args.stop_after:
             break
 
     if last_it == start_it:
         # A resume of a finished run: nothing ran, and re-saving would
         # overwrite the checkpoint's real final loss with NaN.
-        print(f"{path} already at iteration {last_it}; nothing to do")
+        if writer:
+            print(f"{path} already at iteration {last_it}; nothing to do")
         return None
     with timed(timer, "save", device):
         save(last_it, loss)
-        if finish is not None:
+        if finish is not None and writer:
             finish()
     return loss
 
 
+def add_sharded_args(p: argparse.ArgumentParser, train: bool) -> None:
+    """The JAX scripts' --sharded / --capacity / --devices (dests, defaults
+    and types as theirs; the help says what they do here)."""
+    if train:
+        p.add_argument("--sharded", action="store_true",
+                       help="train with the experts sharded over torch.distributed "
+                            "ranks (config #4's expert-parallel training: local experts "
+                            "per rank, a differentiable cross-rank combine)")
+        p.add_argument("--capacity", type=int, default=0,
+                       help="with --sharded: per-frame top-capacity local experts run "
+                            "(gating-routed training, no coordinate gather); 0 = dense "
+                            "(all local experts + the gather)")
+    else:
+        p.add_argument("--sharded", action="store_true",
+                       help="shard the experts over torch.distributed ranks and run "
+                            "the gating-routed config-#4 inference path (expert CNNs run "
+                            "only for gating-selected experts; winning pose by cross-rank "
+                            "argmax all-reduce)")
+        p.add_argument("--capacity", type=int, default=0,
+                       help="with --sharded: gating-selected local experts run per rank "
+                            "per frame (0 = all local experts, i.e. dense-sharded through "
+                            "the same routed path)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="with --sharded: ranks to spawn here (gloo with --cpu, NCCL "
+                        "on the card, one card each); under torchrun the world size "
+                        "(0 = the environment's, or one rank)")
+
+
+def check_sharded_devices(p: argparse.ArgumentParser, args) -> None:
+    """--devices against the environment and the cards (p.error)."""
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None and args.devices and args.devices != int(world):
+        p.error(f"--devices {args.devices} under a launcher of world size {world}")
+    n = int(world) if world is not None else max(1, args.devices)
+    if not args.cpu and world is None and n > torch.cuda.device_count():
+        p.error(f"--devices {n}: NCCL needs one card per rank and this host has "
+                f"{torch.cuda.device_count()}")
+
+
+def run_sharded(args, module: str, argv) -> int:
+    """Run ``module``'s ``sharded_rank(argv)`` on the ranks of a --sharded
+    run (module docstring): in this process under ``torchrun`` or for one
+    rank (a group of one on a free localhost port), else in --devices
+    spawned ranks.  Returns the exit code of rank 0's run."""
+    from esac_tpu_torch.parallel.multihost import free_port, initialize_multihost, spawn_ranks
+
+    backend = "gloo" if args.cpu else "nccl"
+    if "WORLD_SIZE" not in os.environ and args.devices > 1:
+        spawn_ranks(_sharded_rank, args.devices, args=(module, argv), backend=backend,
+                    device="cpu" if args.cpu else None)
+        return 0
+    import torch.distributed as dist
+
+    if "WORLD_SIZE" in os.environ:
+        initialize_multihost(backend=backend, device="cpu" if args.cpu else None)
+    else:
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend,
+                             "cpu" if args.cpu else None)
+    try:
+        return importlib.import_module(module).sharded_rank(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(rank, module, argv):
+    importlib.import_module(module).sharded_rank(argv)
+
+
 __all__ = [
     "add_scoring_impl_arg",
+    "add_sharded_args",
+    "check_sharded_devices",
     "batch_frames",
     "common_parser",
     "load_esac_scene",
@@ -288,6 +377,7 @@ __all__ = [
     "make_gating",
     "open_scene",
     "resume_train_state",
+    "run_sharded",
     "scene_center_of",
     "scene_kwargs",
     "timed",

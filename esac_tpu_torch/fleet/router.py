@@ -933,6 +933,15 @@ RetrievalCandidatesExhaustedError` (failed — every candidate dispatch
             if now >= next_rebalance:
                 self._rebalance()
                 next_rebalance = now + self._policy.rebalance_every_s
+            # Drive the timeline and the health rules between polls: both
+            # are piggyback hooks (one clock compare when not due) and run
+            # with no router lock held.
+            tl = self.obs.timeline()
+            if tl is not None:
+                tl.maybe_tick()
+                eng = self.obs.health_rules()
+                if eng is not None:
+                    eng.maybe_evaluate()
             time.sleep(poll)
 
     def _settle(self) -> bool:

@@ -1,7 +1,10 @@
-"""Serving observability (the part of ``esac_tpu/obs`` the dispatcher and
-the registry import): metric instruments, the metrics registry, span
-chains and causal traces.  Pure host code."""
+"""Serving observability (counterpart of ``esac_tpu/obs``): metric
+instruments and the metrics registry, span chains and causal traces, the
+windowed :class:`Timeline`, the health :class:`RuleEngine` over it, and
+the export surface (Prometheus text, ``jsonable``, ``provenance``, the
+``python -m esac_tpu_torch.obs`` dump).  Pure host code."""
 
+from esac_tpu_torch.obs.export import provenance, render_prometheus, render_traces
 from esac_tpu_torch.obs.metrics import (
     OBS_SCHEMA,
     CounterVec,
@@ -11,6 +14,8 @@ from esac_tpu_torch.obs.metrics import (
     StreamingHistogram,
     jsonable,
 )
+from esac_tpu_torch.obs.rules import Alert, RuleEngine, default_rules
+from esac_tpu_torch.obs.timeline import Timeline
 from esac_tpu_torch.obs.trace import (
     STAGES,
     Span,
@@ -27,21 +32,28 @@ from esac_tpu_torch.obs.trace import (
 
 __all__ = [
     "OBS_SCHEMA",
+    "Alert",
     "CounterVec",
     "GaugeVec",
     "HistogramVec",
     "MetricsRegistry",
+    "RuleEngine",
     "Span",
     "SpanChain",
     "STAGES",
     "StreamingHistogram",
     "TERMINAL_STAGES",
+    "Timeline",
     "Trace",
     "TraceStore",
     "active_traces",
     "current_issuer",
+    "default_rules",
     "issuer_scope",
     "jsonable",
     "new_trace_id",
+    "provenance",
+    "render_prometheus",
+    "render_traces",
     "trace_scope",
 ]

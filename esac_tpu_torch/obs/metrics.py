@@ -1,6 +1,8 @@
 """Bounded metric instruments and the metrics registry (a copy of
-``esac_tpu/obs/metrics.py`` without the timeline, rule-engine and
-Prometheus attachments, which the port has not taken yet).
+``esac_tpu/obs/metrics.py``), with its attachments: the windowed
+:class:`~esac_tpu_torch.obs.timeline.Timeline`, the health
+:class:`~esac_tpu_torch.obs.rules.RuleEngine` and the Prometheus page
+(``obs/export.py``).
 
 One substrate for every number the serving stack publishes: the
 dispatcher's request/outcome accounting, the SLO layer's sheds and
@@ -77,7 +79,8 @@ class StreamingHistogram:
     """
 
     __slots__ = ("_lo", "_log_lo", "_log_growth", "_n_buckets", "_lock",
-                 "_epochs", "_epoch_cap", "_counts", "_stats")
+                 "_epochs", "_epoch_cap", "_counts", "_stats",
+                 "_life_counts", "_life_n", "_life_sum")
 
     def __init__(self, lo: float = _HIST_LO, hi: float = _HIST_HI,
                  growth: float = _HIST_GROWTH,
@@ -101,6 +104,13 @@ class StreamingHistogram:
         # stats = [count, sum, min, max].
         self._counts: list[list[int]] = [self._new_counts()]
         self._stats: list[list[float]] = [[0, 0.0, math.inf, -math.inf]]
+        # Lifetime (never rotated) bucket counts: the timeline diffs them
+        # between ticks into exact per-window histograms (windowed epoch
+        # counts rotate, so their diffs can go negative).  One more
+        # fixed-size array and two scalars: the memory bound holds.
+        self._life_counts: list[int] = self._new_counts()
+        self._life_n = 0
+        self._life_sum = 0.0
 
     def _new_counts(self) -> list[int]:
         return [0] * (self._n_buckets + 2)  # + underflow/overflow slots
@@ -117,11 +127,14 @@ class StreamingHistogram:
             counts, stats = self._counts[-1], self._stats[-1]
             i = self._index(v)
             counts[i] += 1
+            self._life_counts[i] += 1
+            self._life_n += 1
             stats[0] += 1
             if math.isfinite(v):
                 stats[1] += v
                 stats[2] = min(stats[2], v)
                 stats[3] = max(stats[3], v)
+                self._life_sum += v
             if self._epoch_cap is not None and stats[0] >= self._epoch_cap:
                 self._counts.append(self._new_counts())
                 self._stats.append([0, 0.0, math.inf, -math.inf])
@@ -134,7 +147,7 @@ class StreamingHistogram:
         dispatch's samples (the serving hot path publishes per-dispatch,
         not per-request).
         Sample-for-sample identical to a loop of scalar ``observe``
-        calls: same bucket increments, and the
+        calls: same bucket increments, same lifetime stream, and the
         epoch-rotation check runs after EVERY sample exactly as the
         scalar path does, so windowed quantiles cannot tell the two
         apart."""
@@ -146,11 +159,14 @@ class StreamingHistogram:
                 counts, stats = self._counts[-1], self._stats[-1]
                 i = self._index(v)
                 counts[i] += 1
+                self._life_counts[i] += 1
+                self._life_n += 1
                 stats[0] += 1
                 if math.isfinite(v):
                     stats[1] += v
                     stats[2] = min(stats[2], v)
                     stats[3] = max(stats[3], v)
+                    self._life_sum += v
                 if self._epoch_cap is not None \
                         and stats[0] >= self._epoch_cap:
                     self._counts.append(self._new_counts())
@@ -206,10 +222,27 @@ class StreamingHistogram:
                                    self._log_lo, self._log_growth)
 
     def reset(self) -> None:
-        """Clear the window."""
+        """Clear the window.  The lifetime stream (:meth:`lifetime`) stays:
+        it is monotone like a counter, so timeline deltas survive a stats
+        reset instead of going negative."""
         with self._lock:
             self._counts = [self._new_counts()]
             self._stats = [[0, 0.0, math.inf, -math.inf]]
+
+    def lifetime(self):
+        """(bucket counts copy, n, sum) over the histogram's lifetime: the
+        monotone stream the timeline diffs per window."""
+        with self._lock:
+            return list(self._life_counts), self._life_n, self._life_sum
+
+    def quantile_from_counts(self, counts, n, q: float) -> float:
+        """Nearest-rank quantile over caller-supplied bucket counts in this
+        histogram's bucket geometry (the timeline's per-window histograms):
+        bucket midpoints; a rank in the underflow bucket reports the floor
+        ``lo`` (per-window extrema are not kept, and +inf would put a
+        non-standard JSON token into a window record)."""
+        return self._quantile_from(counts, n, self._lo, math.inf, q,
+                                   self._log_lo, self._log_growth)
 
     def summary(self, quantiles=(0.5, 0.9, 0.99)) -> dict:
         counts, n, s, lo, hi = self.merged()
@@ -356,6 +389,12 @@ class HistogramVec:
         with self._lock:
             return [dict(k) for k in self._children]
 
+    def children(self) -> list[tuple[dict, "StreamingHistogram"]]:
+        """(labels, child) pairs -- the timeline's iteration surface
+        (children lock themselves; the list is a copy)."""
+        with self._lock:
+            return [(dict(k), h) for k, h in self._children.items()]
+
     def _select(self, sub: dict) -> list[StreamingHistogram]:
         with self._lock:
             return [h for k, h in self._children.items() if _matches(k, sub)]
@@ -440,9 +479,12 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._metrics: dict[str, object] = {}
         self._collectors: dict[str, object] = {}
-        # The ring-bounded trace store, created on demand (a leaf lock;
-        # the registry lock only guards the slot itself).
+        # Attachments created on demand: the ring-bounded trace store, the
+        # windowed timeline and the health-rule engine.  Each owns a leaf
+        # lock; the registry lock only guards the slots themselves.
         self._trace_store = None
+        self._timeline = None
+        self._health_rules = None
 
     def _instrument(self, name: str, factory, kind: str):
         with self._lock:
@@ -510,6 +552,57 @@ class MetricsRegistry:
         with self._lock:
             return self._trace_store
 
+    def tables(self) -> tuple[dict, dict]:
+        """Locked copy of (instruments, collectors): the iteration surface
+        ``snapshot()`` and the timeline share (the registry lock is released
+        before any instrument lock is taken)."""
+        with self._lock:
+            return dict(self._metrics), dict(self._collectors)
+
+    def attach_timeline(self, window_s: float = 1.0, max_windows: int = 120,
+                        collectors: bool = True):
+        """Attach (or return the existing) :class:`~esac_tpu_torch.obs.
+        timeline.Timeline` over this registry, published as the
+        ``timeline`` collector.  Idempotent: sizing binds at first attach."""
+        from esac_tpu_torch.obs.timeline import Timeline
+
+        with self._lock:
+            tl = self._timeline
+            if tl is None:
+                tl = self._timeline = Timeline(self, window_s=window_s,
+                                               max_windows=max_windows,
+                                               collectors=collectors)
+        self.register_collector("timeline", tl.snapshot)
+        return tl
+
+    def timeline(self):
+        """The attached timeline, or None (never creates)."""
+        with self._lock:
+            return self._timeline
+
+    def attach_health_rules(self, rules=None, max_alerts: int = 256, **timeline_kw):
+        """Attach (or return the existing) :class:`~esac_tpu_torch.obs.rules.
+        RuleEngine` over this registry's timeline (attached too when
+        missing), published as the ``health_alerts`` collector plus the
+        ``health_alerts_total`` counter and ``health_alert_active`` gauge.
+        ``rules=None`` takes the default catalog."""
+        from esac_tpu_torch.obs.rules import RuleEngine, default_rules
+
+        tl = self.attach_timeline(**timeline_kw)
+        with self._lock:
+            eng = self._health_rules
+            if eng is None:
+                eng = self._health_rules = RuleEngine(
+                    tl, default_rules() if rules is None else rules, registry=None,
+                    max_alerts=max_alerts)
+        eng.bind_obs(self)
+        return eng
+
+    def health_rules(self):
+        """The attached rule engine, or None (never creates)."""
+        with self._lock:
+            return self._health_rules
+
     def register_collector(self, name: str, fn) -> None:
         """Attach a named pull collector: a zero-argument callable
         returning a snapshot-consistent dict.  Registration is
@@ -530,9 +623,7 @@ class MetricsRegistry:
         keys and numpy scalars sanitized).  Collector failures are
         recorded in place, never raised — a snapshot must not die on one
         sick surface."""
-        with self._lock:
-            metrics = dict(self._metrics)
-            collectors = dict(self._collectors)
+        metrics, collectors = self.tables()
         out = {
             "obs_schema": OBS_SCHEMA,
             "recorded_at_unix": time.time(),
@@ -545,6 +636,11 @@ class MetricsRegistry:
             except Exception as e:  # noqa: BLE001 — recorded, never raised
                 out["collectors"][name] = {"error": repr(e)}
         return jsonable(out)
+
+    def render_prometheus(self) -> str:
+        from esac_tpu_torch.obs.export import render_prometheus
+
+        return render_prometheus(self.snapshot())
 
 
 def jsonable(obj):

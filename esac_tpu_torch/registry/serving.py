@@ -1119,3 +1119,53 @@ class SceneRegistry:
         )
         self.bind_obs(disp.obs)
         return disp
+
+
+def make_registry_sharded_serve_fn(mesh, registry: SceneRegistry,
+                                   cfg: RansacConfig = RansacConfig(), device=None):
+    """Registry-backed variant of ``serve.dispatcher.make_sharded_serve_fn``:
+    the coords-level expert-sharded path with the scene's principal point
+    resolved from the registry per dispatch and passed as an argument
+    (``parallel.make_esac_infer_sharded_frames_dynamic``), so one function
+    serves every scene that shares shapes and ``cfg``.  The batch tree is
+    the coords-level contract (``seed``, ``coords_all``, ``pixels``,
+    ``f``): the expert CNNs ran upstream; what hot-swaps here is the
+    camera.  It takes the same breaker / canary resolution and probe path
+    as :meth:`SceneRegistry.infer_fn`.  The registry lives on rank 0: with
+    more than one rank each call broadcasts (batch, c) through
+    ``parallel.lead`` and the other ranks run
+    ``parallel.follow(make_esac_infer_sharded_frames_dynamic(mesh, cfg),
+    device)``; ``serve.stop()`` ends them."""
+    from esac_tpu_torch.parallel import esac_sharded
+    from esac_tpu_torch.parallel.multihost import lead_if_distributed
+
+    dev = resolve_device(device)
+    infer = lead_if_distributed(esac_sharded.make_esac_infer_sharded_frames_dynamic(
+        mesh, cfg, dev), dev)
+
+    def serve(batch, scene, route_k=None):
+        if route_k is not None:
+            # Routing decides which expert CNNs run; this path receives
+            # precomputed coords_all, so there is nothing left to route.
+            raise ManifestError(
+                "route_k is not supported on the coords-level sharded "
+                "registry path (expert CNNs run upstream); use "
+                "parallel.make_esac_infer_routed_frames_sharded for "
+                "image-level routed sharded serving"
+            )
+        if registry._health_policy is None:
+            entry = registry.manifest.resolve(scene)
+            return infer(batch, registry.cache.get(entry)["c"])
+        registry._drain_probes()
+        entry = registry._resolve_serving(scene)
+        try:
+            out = infer(batch, registry.cache.get(entry)["c"])
+        except Exception:
+            registry._record_failure_sample(entry.key, registry._batch_frames(batch))
+            raise
+        registry._enqueue_probe(entry.key, out)
+        return out
+
+    serve._cache_size = infer._cache_size
+    serve.stop = infer.stop
+    return serve

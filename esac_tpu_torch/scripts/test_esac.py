@@ -10,6 +10,17 @@ its edge frame): the gating and expert CNNs, then ``esac_infer_frames``
 ``--scoring-impl pallas`` launches the CUDA scoring kernel once per batch.
 Per-frame times cover the whole pipeline, synchronized before each clock
 read, with the first batch dropped as warm-up.
+
+``--sharded`` runs config #4's gating-routed path over ``torch.distributed``
+ranks (``parallel.esac_infer_routed``; ``cli.run_sharded`` starts the
+ranks): the experts padded to a multiple of the rank count, each rank
+running the CNNs of its top --capacity local experts per frame (all of
+them by default), the winner chosen by the cross-rank argmax all-reduce.
+Hypotheses are drawn per frame by global expert index, so one rank with
+every expert evaluates as the dense path does.
+
+    python -m esac_tpu_torch.scripts.test_esac synth0 synth1 --sharded --cpu --devices 2 ...
+    torchrun --nproc-per-node 2 -m esac_tpu_torch.scripts.test_esac ... --sharded
 """
 
 from __future__ import annotations
@@ -22,7 +33,8 @@ import numpy as np
 import torch
 
 from esac_tpu_torch.cli import (
-    add_scoring_impl_arg, common_parser, device_of, load_esac_scene, open_scene, scene_kwargs,
+    add_scoring_impl_arg, add_sharded_args, check_sharded_devices, common_parser, device_of,
+    load_esac_scene, open_scene, run_sharded, scene_kwargs,
 )
 from esac_tpu_torch.data.synthetic import output_pixel_grid
 from esac_tpu_torch.geometry.camera import pose_errors
@@ -33,8 +45,8 @@ from esac_tpu_torch.ransac.kernel import frame_generators
 from esac_tpu_torch.registry.serving import scene_forward
 from esac_tpu_torch.utils.profiling import wait_for
 
-# The keys of the --json file: the JAX package's script's (without its
-# --sharded extras), and of its "per_frame" record.
+# The keys of the --json file: the JAX package's script's (--sharded adds
+# SHARDED_KEYS), and of its "per_frame" record.
 JSON_KEYS = (
     "scenes", "backend", "frames", "median_rot_deg", "median_trans_cm", "pct_5cm5deg",
     "expert_accuracy_pct", "gating_top1_pct", "evaluated_recall_pct", "median_ms_per_frame",
@@ -42,9 +54,12 @@ JSON_KEYS = (
     "per_frame",
 )
 PER_FRAME_KEYS = ("expert", "rot_err_deg", "trans_err_cm", "winner_score", "winner_margin")
+SHARDED_KEYS = ("sharded", "devices", "capacity", "experts_evaluated_per_frame",
+                "experts_total")
+MODULE = "esac_tpu_torch.scripts.test_esac"
 
 
-def main(argv=None) -> int:
+def _parser():
     p = common_parser(__doc__)
     add_scoring_impl_arg(p)
     p.add_argument("scenes", nargs="+")
@@ -57,15 +72,52 @@ def main(argv=None) -> int:
     p.add_argument("--limit", type=int, default=0, help="max frames per scene (0 = all)")
     p.add_argument("--topk", type=int, default=0,
                    help="evaluate only the top-k gating experts (0 = all, dense)")
+    add_sharded_args(p, train=False)
     p.add_argument("--eval-batch", type=int, default=16,
                    help="frames per batch of the CNNs and the hypothesis loop")
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write the metrics as a JSON file")
+    return p
+
+
+def _args(argv):
+    p = _parser()
     args = p.parse_args(argv)
     if len(args.experts) != len(args.scenes):
         p.error("need one --experts checkpoint per scene")
+    if args.sharded and args.topk:
+        p.error("--sharded and --topk are mutually exclusive; use --capacity "
+                "for gating-pruned compute on the mesh")
+    if args.sharded:
+        check_sharded_devices(p, args)
+    return args
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _args(argv)
+    if args.sharded:
+        return run_sharded(args, MODULE, argv)
+    return _evaluate(args, device_of(args))
+
+
+def sharded_rank(argv) -> int:
+    """One rank of a --sharded run (its process group initialized)."""
+    import torch.distributed as dist
+
+    from esac_tpu_torch.parallel import make_mesh
+
+    args = _args(argv)
     dev = device_of(args)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _evaluate(args, dev, make_mesh(n_data=1, n_expert=dist.get_world_size()))
+
+
+def _evaluate(args, dev, mesh=None) -> int:
+    """The evaluation; ``mesh`` for --sharded (rank 0 prints and writes)."""
     backend = f"torch-{dev.type}"
+    writer = mesh is None or mesh.get_rank() == 0
 
     datasets = [open_scene(args.root, s, "test", expert=i, device=dev, **scene_kwargs(args))
                 for i, s in enumerate(args.scenes)]
@@ -79,6 +131,21 @@ def main(argv=None) -> int:
     pixels = output_pixel_grid(H, W, 8, device=dev)
     cfg = RansacConfig(n_hyps=args.hypotheses, scoring_impl=args.scoring_impl,
                        **({"refine_iters": args.refine_iters} if args.refine_iters > 0 else {}))
+    routed = None
+    if mesh is not None:
+        from esac_tpu_torch.parallel import (
+            esac_infer_routed, pad_experts_for_mesh, pad_gating_logits,
+        )
+
+        n_dev = mesh.size()
+        experts_p, centers_p, M_pad = pad_experts_for_mesh(scene["expert"], scene["centers"],
+                                                           n_dev)
+        m_local = M_pad // n_dev
+        cap = min(args.capacity, m_local) if args.capacity > 0 else m_local
+        # Padding slots run a (wasted) forward but are not real experts.
+        n_evaluated = min(n_dev * cap, M)
+        routed = esac_infer_routed(mesh, experts_p, centers_p, capacity=cap, cfg=cfg,
+                                   device=dev)
 
     # Every evaluated frame on the device once; batches index it there.
     frames = []
@@ -108,33 +175,46 @@ def main(argv=None) -> int:
         sel = np.arange(start, min(start + B, n_total))
         pad_h = np.pad(sel, (0, B - len(sel)), mode="edge")  # a fixed batch shape
         pad = torch.as_tensor(pad_h, device=dev)
+        dt_hyp = None
         with torch.inference_mode():
             t_full = time.perf_counter()
-            coords_all, logits = scene_forward(scene, images_d[pad])
-            wait_for(coords_all)
-            t0 = time.perf_counter()
             gens = frame_generators(pad_h, dev)  # seeded by frame index
-            if args.topk > 0:
-                out = esac_infer_topk_frames(gens, logits, coords_all, pixels, focals_d[pad], cx,
-                                             cfg, k=args.topk, device=dev)
+            if routed is not None:
+                # The expert CNNs run inside the routed call.
+                logits = scene["gating"](images_d[pad])
+                out = routed(gens, pad_gating_logits(logits, M_pad), images_d[pad],
+                             focals_d[pad], pixels, cx)
             else:
-                out = esac_infer_frames(gens, logits, coords_all, pixels, focals_d[pad], cx,
-                                        cfg, device=dev)
+                coords_all, logits = scene_forward(scene, images_d[pad])
+                wait_for(coords_all)
+                t0 = time.perf_counter()
+                if args.topk > 0:
+                    out = esac_infer_topk_frames(gens, logits, coords_all, pixels,
+                                                 focals_d[pad], cx, cfg, k=args.topk,
+                                                 device=dev)
+                else:
+                    out = esac_infer_frames(gens, logits, coords_all, pixels, focals_d[pad],
+                                            cx, cfg, device=dev)
             wait_for(out["rvec"])
             now = time.perf_counter()
             r_errs, t_errs = pose_errors(rodrigues(out["rvec"]), out["tvec"], R_gts[pad],
                                          t_gts[pad])
-        dt = (now - t_full) / len(pad)
-        dt_hyp = (now - t0) / len(pad)
-        experts = out["expert"].cpu().numpy()
-        ev_sets = out["experts_evaluated"].cpu().numpy() if args.topk > 0 else None
-        per_exp = out["scores"].double().amax(-1).cpu().numpy()  # (B, K)
-        b_scores = per_exp.max(-1)
-        if per_exp.shape[1] > 1:
-            top2 = np.sort(per_exp, axis=-1)[:, -2:]
-            b_margins = top2[:, 1] - top2[:, 0]
-        else:
+        if routed is not None:
+            ev_sets = out["experts_evaluated"].cpu().numpy()
+            b_scores = out["score"].double().cpu().numpy()
             b_margins = np.full(len(pad), np.nan)
+        else:
+            dt_hyp = (now - t0) / len(pad)
+            ev_sets = out["experts_evaluated"].cpu().numpy() if args.topk > 0 else None
+            per_exp = out["scores"].double().amax(-1).cpu().numpy()  # (B, K)
+            b_scores = per_exp.max(-1)
+            if per_exp.shape[1] > 1:
+                top2 = np.sort(per_exp, axis=-1)[:, -2:]
+                b_margins = top2[:, 1] - top2[:, 0]
+            else:
+                b_margins = np.full(len(pad), np.nan)
+        dt = (now - t_full) / len(pad)
+        experts = out["expert"].cpu().numpy()
         r_errs, t_errs = r_errs.cpu().numpy(), t_errs.cpu().numpy()
         logits_np = logits.cpu().numpy()
         for j, gi in enumerate(sel):
@@ -151,7 +231,8 @@ def main(argv=None) -> int:
             winner_margins.append(
                 None if np.isnan(b_margins[j]) else round(float(b_margins[j]), 3))
             times.append(dt)
-            hyp_times.append(dt_hyp)
+            if dt_hyp is not None:
+                hyp_times.append(dt_hyp)
 
     rot = np.asarray(rot_errs)
     tr = np.asarray(trans_errs)
@@ -160,8 +241,12 @@ def main(argv=None) -> int:
         # Every frame of the first batch shares its warm-up dispatch time.
         return np.asarray(xs[B:] if len(xs) > B else xs)
 
+    if not writer:
+        return 0
     tm = _drop_warmup(times)
-    n_hyp_experts = min(args.topk, M) if args.topk > 0 else M
+    n_hyp_experts = (n_evaluated if routed is not None
+                     else min(args.topk, M) if args.topk > 0 else M)
+    mode = f", sharded routed ({n_evaluated}/{M} experts/frame)" if routed is not None else ""
     print(f"frames: {n_total}")
     print(f"median rot err:   {np.median(rot):.2f} deg")
     print(f"median trans err: {100 * np.median(tr):.2f} cm")
@@ -170,7 +255,7 @@ def main(argv=None) -> int:
     print(f"gating top-1:     {100.0 * gate_top1 / n_total:.1f}%")
     print(f"evaluated recall: {100.0 * recall_hits / n_total:.1f}%  (true expert's CNN ran)")
     print(f"median time:      {1e3 * np.median(tm):.1f} ms/frame full pipeline "
-          f"({args.hypotheses * n_hyp_experts} hyps, backend={backend})")
+          f"({args.hypotheses * n_hyp_experts} hyps, backend={backend}{mode})")
     if args.json:
         record = {
             "scenes": args.scenes,
@@ -185,9 +270,11 @@ def main(argv=None) -> int:
             "median_ms_per_frame": round(1e3 * float(np.median(tm)), 2),
             "timing_scope": "full pipeline: gating + expert CNN forwards + hypothesis "
                             "loop (median_hyploop_ms_per_frame is the hypothesis loop "
-                            "alone); synchronized, first batch dropped",
-            "median_hyploop_ms_per_frame": round(
-                1e3 * float(np.median(_drop_warmup(hyp_times))), 2),
+                            "alone; null for --sharded, whose expert forwards run inside "
+                            "the routed call); synchronized, first batch dropped",
+            "median_hyploop_ms_per_frame": (
+                round(1e3 * float(np.median(_drop_warmup(hyp_times))), 2)
+                if hyp_times else None),
             "hypotheses_total": args.hypotheses * n_hyp_experts,
             "refine_iters": cfg.refine_iters,
             # Per-frame records, so two runs over the same frames compare
@@ -200,6 +287,8 @@ def main(argv=None) -> int:
                 "winner_margin": winner_margins,
             },
         }
+        if routed is not None:
+            record.update(zip(SHARDED_KEYS, (True, mesh.size(), cap, n_evaluated, M)))
         with open(args.json, "w") as fh:
             json.dump(record, fh, indent=2)
         print(f"wrote {args.json}")

@@ -1417,3 +1417,20 @@ def make_esac_serve_fn(c, cfg: RansacConfig = RansacConfig(), device=None):
                                      batch["pixels"], batch["f"], c, cfg, device=dev)
 
     return count_signatures(serve_esac)
+
+
+def make_sharded_serve_fn(mesh, c, cfg: RansacConfig = RansacConfig(), device=None):
+    """Frames-major expert-sharded entry (config #4's mesh) over a frame
+    dict with leaves ``seed``, ``coords_all`` (M, N, 3), ``pixels``, ``f``
+    -- the micro-batching front end reused for the sharded path; M must
+    divide the mesh's expert axis.  The function is collective: with more
+    than one rank it is this rank 0's side (``parallel.lead``: each call
+    broadcasts its batch first; ``.stop()`` ends the other ranks, which
+    run ``parallel.follow(make_esac_infer_sharded_frames(mesh, c, cfg,
+    as_tree=True), device)``)."""
+    from esac_tpu_torch.parallel.esac_sharded import make_esac_infer_sharded_frames
+    from esac_tpu_torch.parallel.multihost import lead_if_distributed
+
+    dev = resolve_device(device)
+    return lead_if_distributed(
+        make_esac_infer_sharded_frames(mesh, c, cfg, as_tree=True, device=dev), dev)

@@ -29,8 +29,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COMMON = ["--cpu", "--size", "test", "--batch", "2", "--frames", "4", "--learningrate", "1e-3"]
 PORT = {"train_expert": train_expert, "train_gating": train_gating, "train_esac": train_esac,
         "test_esac": test_esac}
-# Flags of the JAX scripts this slice has no counterpart for.
-ABSENT = {"backend", "sharded", "capacity", "devices"}
+# Flags of the JAX scripts the port has no counterpart for.
+ABSENT = {"backend"}
 
 
 def run(module, argv):
@@ -107,7 +107,7 @@ def test_scripts_print_the_jax_scripts_lines(name):
     port_heads = _print_prefixes(ROOT / "esac_tpu_torch" / "scripts" / f"{name}.py")
     if name != "test_esac":
         port_heads |= _print_prefixes(ROOT / "esac_tpu_torch" / "cli.py")
-    assert port_heads == jax_heads - {"sharded training: "}
+    assert port_heads == jax_heads
 
 
 @pytest.mark.parametrize("key", ["e0", "g", "esac", "dense", "topk"])
