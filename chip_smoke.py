@@ -26,7 +26,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  its best score, with its argmax equal to that winner (the
                  two share one partial pass); CUDA-event times of each
                  wrapper, of each kernel's launch alone on operands packed
-                 once, and of the plain version;
+                 once, and of the plain version.  Then the nan_planted
+                 shape (P = 28, H = 256, N = 4800) with NaN planted in t:
+                 a NaN depth before the finite winner and a NaN t_x after
+                 it, a NaN t_x after it only, every hypothesis NaN, none:
+                 both kernels follow torch.argmax as their plain versions
+                 do (the first NaN wins with score NaN; all NaN -> index 0),
+                 NaN scores where the plain scores are NaN, the rest within
+                 the tolerance;
 4. recovery   -- synthetic frames built here from --seed (GT pose, cell
                  coordinates back-projected at random depths, 2 cm noise,
                  30% outliers) through dsac_infer and esac_infer_frames
@@ -97,7 +104,22 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  into its modules, the resumed run starts at iteration 2 with
                  Adam's step count 2 and ends at 4, every printed loss is
                  finite, the JSON has every key of the JAX script's, and the
-                 kernels launch exactly as WORKFLOW_LAUNCHES says;
+                 kernels launch exactly as WORKFLOW_LAUNCHES says.  The
+                 --backend cpp leg (the C++ hypothesis loop of esac_cpp/,
+                 built by g++ into esac_tpu_torch/build/, its seconds
+                 printed): test_esac --backend cpp on the stage-3
+                 checkpoints (the seven scenes at --limit 2, as the dense
+                 evaluation: the gating net needs all seven experts) and
+                 train_esac --backend cpp for 2 iterations from the stage-1/2
+                 checkpoints with --loss-clamp 1000 (WORKFLOW's note): no
+                 kernel launch in either, the JAX script's JSON keys, finite
+                 poses and losses, the first frame's expert losses equal to
+                 a direct esac_train_cpp call on the same coordinates and
+                 sets (rtol 1e-6), every expert and the gating net moved by
+                 Adam (a non-zero gradient); ms a frame of the CNNs and of
+                 the host loop, s an iteration.  Last, the three dataset
+                 scripts (setup_7scenes, setup_12scenes, setup_aachen) on
+                 fabricated trees whose images are raw bytes;
 8. server     -- the serving front end (esac_tpu_torch.serve.dispatcher,
                  esac_tpu_torch.registry.serving.SceneRegistry) on phase 5's
                  preset under "fused_select": four random-init scene versions
@@ -307,7 +329,17 @@ STEP_LOSS_RTOL = 1e-3
 # Phase 7: the workflow at full width (config #2's seven scenes).
 WORKFLOW = dict(size="ref", height=480, width=640, scenes=7, frames=8, batch=2,
                 expert_iterations=3, gating_iterations=3, esac_iterations=4, stop_after=2,
-                hypotheses=256, eval_batch=4, limit=2, topk=2)
+                hypotheses=256, eval_batch=4, limit=2, topk=2, cpp_iterations=2,
+                cpp_loss_clamp=1000.0)
+# The cpp leg trains with --loss-clamp 1000: the stage-1 experts of 3
+# iterations put every hypothesis past the default clamp of 100 (1 m), where
+# the clamped loss has no gradient, so the check that the extension's
+# gradient reaches every expert and the gating net would see none (a CPU
+# rehearsal at the test size: E[pose loss] 100.000 on every step; 218.9 and
+# 182.5 with the clamp at 1000).  Rotation errors stay below 180, so the
+# clamp binds only past 10 m.
+# The --backend cpp leg's launches: the hypothesis loop is C++ on the host.
+NO_LAUNCHES = {"soft_inlier_scores": 0, "soft_inlier_select": 0}
 
 
 def log(*parts) -> None:
@@ -609,7 +641,111 @@ def phase_kernels(dev, seed):
                 + "; ".join(f"{k} kernel S={split[k]['S']} chunks of {split[k]['cells']} "
                             f"cells, {split[k]['blocks']} blocks" for k in ("score", "select"))
                 + f"; {split['resident_blocks']} resident on the card")
+    results["nan_planted"] = _nan_planted(dev, seed)
     return results
+
+
+# Phase 3's planted-NaN shape (frames, maps, hypotheses, height, width): the
+# serving bucket's P = 28, H = 256, N = 4800.
+NAN_PLANTED = (4, 7, 256, 480, 640)
+
+
+def _same_or_both_nan(a, b) -> bool:
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _nan_planted(dev, seed):
+    """Both kernels on poses with NaN planted in t, held against their
+    plain versions: torch.argmax's order, where NaN is greater than every
+    number.  Problems cycle through four kinds: a NaN depth (t_z) at the
+    hypothesis before the finite winner and a NaN t_x after it (the first
+    wins); a NaN t_x after the winner only (it wins); every t NaN (index 0,
+    score NaN); none planted (as the other shapes)."""
+    import torch
+
+    from esac_tpu_torch.ransac import fused_scoring as fs
+
+    B, M, H, height, width = NAN_PLANTED
+    Rs, ts, coords, pixels, f, c = _scoring_inputs(dev, seed + 7, B, M, H, height, width)
+    P, N = B * M, coords.shape[2]
+    w = torch.argmax(fs._scores_plain(Rs, ts, coords, pixels, f, c, 10.0, 0.5), dim=-1)
+    ts = ts.clone()
+    flat_t, flat_w = ts.view(P, H, 3), w.reshape(P).tolist()
+    want = []
+    for p, wp in enumerate(flat_w):
+        kind = p % 4
+        if kind == 0:
+            flat_t[p, max(wp - 1, 0), 2] = float("nan")
+            flat_t[p, min(wp + 1, H - 1), 0] = float("nan")
+            want.append(max(wp - 1, 0))
+        elif kind == 1:
+            flat_t[p, min(wp + 1, H - 1), 0] = float("nan")
+            want.append(min(wp + 1, H - 1))
+        elif kind == 2:
+            flat_t[p] = float("nan")
+            want.append(0)
+        else:
+            want.append(wp)
+    args = (Rs, ts, coords, pixels, f, c, 10.0, 0.5)
+    planted = torch.tensor([p % 4 != 3 for p in range(P)], device=dev).reshape(B, M)
+
+    k_scores = fs.soft_inlier_scores_kernel(*args)
+    p_scores = fs._scores_plain(*args)
+    k_i, k_s, k_pose = fs.soft_inlier_score_select(*args)
+    p_i, p_s, p_pose = fs._select_plain(*args)
+    sync(dev)
+    if not torch.equal(torch.isnan(k_scores), torch.isnan(p_scores)):
+        raise AssertionError("nan_planted: the scoring kernel's NaN scores differ from plain")
+    if not torch.allclose(k_scores, p_scores, equal_nan=True, **SCORE_TOL):
+        raise AssertionError("nan_planted: scoring kernel vs plain on the finite scores")
+    if p_i.reshape(P).tolist() != want:
+        raise AssertionError(f"nan_planted: plain winners {p_i.reshape(P).tolist()} != {want}")
+    top2 = p_scores.nan_to_num(nan=float("inf")).topk(2, dim=-1).values
+    clear = planted | ((top2[..., 0] - top2[..., 1])
+                       > (SCORE_TOL["atol"] + SCORE_TOL["rtol"] * top2[..., 0]))
+    if not torch.equal(k_i[clear], p_i[clear]):
+        raise AssertionError(f"nan_planted: select winners {k_i.reshape(P).tolist()} != plain "
+                             f"{p_i.reshape(P).tolist()}")
+    if not torch.equal(torch.isnan(k_s), torch.isnan(p_s)) or not torch.isnan(k_s[planted]).all():
+        raise AssertionError("nan_planted: the select kernel's NaN scores differ from plain")
+    if not torch.allclose(k_s, p_s, equal_nan=True, **SCORE_TOL):
+        raise AssertionError("nan_planted: select score vs plain")
+    want_pose = torch.cat([Rs.reshape(B, M, H, 9), ts], -1)[
+        torch.arange(B)[:, None], torch.arange(M)[None], k_i]
+    if not _same_or_both_nan(k_pose, want_pose):
+        raise AssertionError("nan_planted: winner pose row is not its input row")
+    if not torch.equal(torch.argmax(k_scores, dim=-1), k_i):
+        raise AssertionError("nan_planted: argmax of the scoring kernel != select winner")
+    if not _same_or_both_nan(k_scores.gather(-1, k_i[..., None])[..., 0], k_s):
+        raise AssertionError("nan_planted: scores at the select winner != its best score")
+
+    def finite_err(a, b):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        return float((a - b)[both].abs().max())
+
+    ms = {
+        "score": time_ms(lambda: fs.soft_inlier_scores_kernel(*args), dev),
+        "score_plain": time_ms(lambda: fs._scores_plain(*args), dev, reps=5),
+        "select": time_ms(lambda: fs.soft_inlier_score_select(*args), dev),
+        "select_plain": time_ms(lambda: fs._select_plain(*args), dev, reps=5),
+    }
+    kernel_ms, split = _launch_ms(dev, fs, args)
+    ms.update(kernel_ms)
+    bound = {"score": _bound(P, H, N, 1, P * H * 4),
+             "select": _bound(P, H, N, 1, P * (4 + 4 + 48))}
+    out = dict(P=P, H=H, N=N, err_scores=finite_err(k_scores, p_scores),
+               err_select=finite_err(k_s, p_s), clear_winners=int(clear.sum()), ms=ms,
+               cell_split=split, bound=bound, planted=int(planted.sum()),
+               winners=k_i.reshape(P).tolist())
+    log(f"[kernels] nan_planted: P={P} H={H} N={N}  {out['planted']} problems with NaN "
+        f"planted in t (before / after the finite winner, every hypothesis): the first NaN "
+        f"wins with score NaN through both kernels, as in the plain versions; winners "
+        f"checked {out['clear_winners']}/{P}; finite scores max|err| {out['err_scores']:.3g} "
+        f"/ {out['err_select']:.3g}; score kernel {ms['score_kernel']:.4f} ms, select kernel "
+        f"{ms['select_kernel']:.4f} ms")
+    return out
 
 
 def phase_recovery(dev, seed):
@@ -1479,12 +1615,13 @@ def phase_training(dev, seed):
     return dict(functions=functions, runs=runs, first_step_rel_diff=rel)
 
 
-def _script(dev, label, module, argv, calls, timer=None):
+def _script(dev, label, module, argv, calls, timer=None, per_call=None):
     """``module.main(argv)`` (with ``timer`` for the trainers) with the
     launch counters set to 0 just before and read just after, its standard
     output captured and logged.  Fails unless it returns 0 and launched
-    exactly ``WORKFLOW_LAUNCHES[script] x calls`` (nothing on the CPU).
-    Returns (output, wall seconds, launches, peak bytes)."""
+    exactly ``per_call`` (by default ``WORKFLOW_LAUNCHES[script]``) x
+    ``calls`` (nothing on the CPU).  Returns (output, wall seconds,
+    launches, peak bytes)."""
     import torch
 
     name = module.__name__.rsplit(".", 1)[1]
@@ -1505,7 +1642,8 @@ def _script(dev, label, module, argv, calls, timer=None):
         log(f"[workflow]   {line}")
     if rc != 0:
         raise AssertionError(f"{label}: exit code {rc}")
-    want = ({k: n * calls for k, n in WORKFLOW_LAUNCHES[name].items()}
+    per_call = WORKFLOW_LAUNCHES[name] if per_call is None else per_call
+    want = ({k: n * calls for k, n in per_call.items()}
             if dev.type == "cuda" else dict.fromkeys(KERNELS, 0))
     if got != want:
         raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
@@ -1549,8 +1687,8 @@ def phase_workflow(dev, seed, size=WORKFLOW):
     scenes = [f"synth{m}" for m in range(size["scenes"])]
     walls, peaks, launches, timers, stage_s = {}, {}, {}, {}, {}
 
-    def record(key, *args):
-        text, walls[key], launches[key], peaks[key] = _script(dev, key, *args)
+    def record(key, *args, **kw):
+        text, walls[key], launches[key], peaks[key] = _script(dev, key, *args, **kw)
         if len(args) == 4:  # a trainer, with its timer
             stage_s[key] = args[3].totals
         return text
@@ -1661,6 +1799,9 @@ def phase_workflow(dev, seed, size=WORKFLOW):
                             dense_frame_ms=dense["median_ms_per_frame"],
                             script_s=walls["test_esac sharded"],
                             launches=launches["test_esac sharded"])
+        cpp = _cpp_leg(dev, d, size, scenes, (experts, gating), final, common, where, batches,
+                       record)
+        setup_scripts = _setup_scripts(d)
 
     totals = {k: sum(n[k] for n in launches.values()) for k in KERNELS}
     result = dict(
@@ -1675,7 +1816,7 @@ def phase_workflow(dev, seed, size=WORKFLOW):
         accuracy={mode: {k: rec[k] for k in ("pct_5cm5deg", "expert_accuracy_pct",
                                              "gating_top1_pct", "evaluated_recall_pct")}
                   for mode, rec in evals.items()},
-        eval_batches=batches, sharded_eval=sharded_eval)
+        eval_batches=batches, sharded_eval=sharded_eval, cpp=cpp, setup_scripts=setup_scripts)
     log(f"[workflow] {len(scenes)} scenes x {size['frames']} frames at {size['width']}x"
         f"{size['height']}, --size {size['size']}: warm ms/iteration "
         + ", ".join(f"{k} {v:.1f}" for k, v in result["iteration_ms_warm"].items())
@@ -1685,6 +1826,212 @@ def phase_workflow(dev, seed, size=WORKFLOW):
         f"read in {state_load_s:.2f} s; stage 3 stop / resume s by stage "
         f"{stage_s['train_esac stop']} / {stage_s['train_esac resume']}")
     return result
+
+
+class _BridgeRecorder:
+    """For one script call, ``backends.train_bridge.make_cpp_expert_losses``
+    wrapped: each frame's host call timed (the C++ forward and its
+    finite-difference backward, the copies to and from the host included),
+    the first frame's inputs and returned losses kept as host copies, with
+    the bridge's own arguments."""
+
+    def __enter__(self):
+        from esac_tpu_torch.backends import train_bridge
+
+        self.module, self.real = train_bridge, train_bridge.make_cpp_expert_losses
+        self.calls, self.seconds, self.first, self.bridge_args = 0, 0.0, None, None
+
+        def make(pixels, f, c, cfg):
+            fn = self.real(pixels, f, c, cfg)
+            self.bridge_args = (pixels.cpu().numpy(), float(f), (float(c[0]), float(c[1])), cfg)
+
+            def timed(coords_all, R_gt, t_gt, idx):
+                t0 = time.perf_counter()
+                E = fn(coords_all, R_gt, t_gt, idx)
+                sync(E.device)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                if self.first is None:
+                    self.first = {k: v.detach().cpu().numpy() for k, v in dict(
+                        coords=coords_all, R=R_gt, t=t_gt, idx=idx, E=E).items()}
+                return E
+
+            return timed
+
+        train_bridge.make_cpp_expert_losses = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_cpp_expert_losses = self.real
+
+
+def _moved(before: dict, after: dict) -> bool:
+    """Whether any parameter of a module changed (Adam moves a parameter
+    exactly when a step's gradient of it is non-zero somewhere)."""
+    import torch
+
+    return any(not torch.equal(before[k].float(), after[k].float()) for k in before)
+
+
+def _cpp_leg(dev, d, size, scenes, stage2, final, common, where, batches, record):
+    """Phase 7's --backend cpp leg (module docstring): the C++ library's
+    build, test_esac --backend cpp on the stage-3 checkpoints and train_esac
+    --backend cpp from the stage-1/2 ones, with no kernel launch."""
+    from esac_tpu_torch import _build
+    from esac_tpu_torch.backends.cpp import esac_train_cpp
+    from esac_tpu_torch.scripts import test_esac, train_esac
+    from esac_tpu_torch.utils.checkpoint import load_checkpoint
+    from esac_tpu_torch.utils.profiling import StageTimer
+
+    built = not _build._host_target(_build.HOST_SRC).exists()
+    t0 = time.perf_counter()
+    _build.build_host()
+    build_s = time.perf_counter() - t0
+
+    path = d / "eval_cpp.json"
+    record("test_esac cpp", test_esac,
+           [*scenes, *where, "--size", size["size"], "--res", str(size["height"]),
+            str(size["width"]), "--frames", str(size["frames"]), "--hypotheses",
+            str(size["hypotheses"]), "--backend", "cpp", "--eval-batch",
+            str(size["eval_batch"]), "--limit", str(size["limit"]), "--experts", *final[0],
+            "--gating", final[1], "--json", str(path)], batches, per_call=NO_LAUNCHES)
+    rec = json.loads(path.read_text())
+    if (tuple(rec) != test_esac.JSON_KEYS or rec["backend"] != "cpp"
+            or rec["evaluated_recall_pct"] is not None
+            or rec["frames"] != size["limit"] * len(scenes)
+            or not all(np.isfinite(rec["per_frame"][k]).all()
+                       for k in ("rot_err_deg", "trans_err_cm"))):
+        raise AssertionError(f"test_esac --backend cpp: {rec}")
+    frame_ms, loop_ms = rec["median_ms_per_frame"], rec["median_hyploop_ms_per_frame"]
+
+    out = str(d / "esac_cpp")
+    timer = StageTimer()
+    with _BridgeRecorder() as bridge:
+        text = record("train_esac cpp", train_esac,
+                      [*scenes, *common, "--iterations", str(size["cpp_iterations"]),
+                       "--hypotheses", str(size["hypotheses"]), "--backend", "cpp",
+                       "--loss-clamp", str(size["cpp_loss_clamp"]),
+                       "--experts", *stage2[0], "--gating", stage2[1], "--output", out],
+                      size["cpp_iterations"], timer, per_call=NO_LAUNCHES)
+    losses = _losses(text, "train_esac --backend cpp")
+    frames = size["cpp_iterations"] * size["batch"]
+    if bridge.calls != frames:
+        raise AssertionError(f"train_esac --backend cpp: {bridge.calls} host calls, "
+                             f"expected {frames}")
+    # The first step's expert losses are the extension's on the same
+    # coordinates and sets.
+    first = bridge.first
+    px, f, c, cfg = bridge.bridge_args
+    direct_out = esac_train_cpp(first["coords"], px, first["idx"], f, c, first["R"],
+                                first["t"], tau=cfg.tau, beta=cfg.beta, alpha=cfg.alpha,
+                                train_refine_iters=cfg.train_refine_iters,
+                                trans_scale=cfg.trans_scale, loss_clamp=cfg.loss_clamp,
+                                want_grad=False)
+    direct = direct_out["expert_losses"].astype(np.float32)
+    if not np.allclose(first["E"], direct, rtol=1e-6, atol=0):
+        raise AssertionError(f"first step's expert losses {first['E']} != direct {direct}")
+    # A non-zero gradient on every expert and on the gating net.
+    nets = [(f"expert {m}", stage2[0][m], f"{out}_expert{m}") for m in range(len(scenes))]
+    nets.append(("gating", stage2[1], f"{out}_gating"))
+    still = [name for name, a, b in nets
+             if not _moved(load_checkpoint(a)[0], load_checkpoint(b)[0])]
+    if still:
+        raise AssertionError(f"train_esac --backend cpp: no gradient reached {still} "
+                             f"(losses {losses}, first expert losses {first['E']})")
+    iteration_s = timer.calls["iteration"]
+    result = dict(build_s=build_s, built=built, frames=rec["frames"], frame_ms=frame_ms,
+                  host_loop_frame_ms=loop_ms, cnn_frame_ms=frame_ms - loop_ms,
+                  accuracy={k: rec[k] for k in ("pct_5cm5deg", "expert_accuracy_pct",
+                                                "gating_top1_pct")},
+                  iteration_s=iteration_s, train_host_frame_ms=1e3 * bridge.seconds / frames,
+                  losses=losses, first_expert_losses=first["E"].tolist(),
+                  first_direct_max_rel=float(np.max(np.abs(first["E"] - direct)
+                                                    / np.maximum(np.abs(direct), 1e-30))),
+                  first_solved_frac=float(direct_out["valid"].mean()))
+    log(f"[workflow] cpp: library {'built' if built else 'found'} in {build_s:.2f} s; "
+        f"test_esac --backend cpp {rec['frames']} frames: {frame_ms:.2f} ms a frame, "
+        f"CNNs {frame_ms - loop_ms:.2f}, host loop {loop_ms:.2f}; train_esac --backend cpp "
+        f"iterations {', '.join(f'{t:.2f}' for t in iteration_s)} s, host calls "
+        f"{result['train_host_frame_ms']:.1f} ms a frame (clean minimal solves, "
+        f"esac_train_cpp's valid, on the first frame: {result['first_solved_frac']:.3f}); "
+        f"losses {losses}; first step's "
+        f"expert losses equal a direct esac_train_cpp call (max rel "
+        f"{result['first_direct_max_rel']:.3g}); every expert and the gating net moved; "
+        f"no kernel launch")
+    return result
+
+
+def _setup_scripts(d):
+    """The port's three dataset scripts on fabricated source trees in
+    ``d``: 7-Scenes (two sequences, one without depth), 12-Scenes (5 frames,
+    2 for test) and Aachen (9 images around three places, 3 clusters).
+    Image files are raw bytes: the scripts link files, never decode them.
+    Returns the files each wrote."""
+    from esac_tpu_torch.scripts import setup_7scenes, setup_12scenes, setup_aachen
+
+    raw, pose = b"not decoded", "\n".join(" ".join(["1", "0", "0", "0"]) for _ in range(4))
+    src = d / "raw7" / "chess"
+    for seq in (1, 2):
+        for i in range(2):
+            stem = src / f"seq-{seq:02d}" / f"frame-{i:06d}"
+            stem.parent.mkdir(parents=True, exist_ok=True)
+            pathlib.Path(f"{stem}.color.png").write_bytes(raw)
+            pathlib.Path(f"{stem}.pose.txt").write_text(pose)
+            if seq == 1:
+                pathlib.Path(f"{stem}.depth.png").write_bytes(raw)
+    (src / "TrainSplit.txt").write_text("sequence1\n")
+    (src / "TestSplit.txt").write_text("sequence2\n")
+    data = d / "raw12" / "apt1" / "kitchen" / "data"
+    data.mkdir(parents=True)
+    for i in range(5):
+        (data / f"frame-{i:06d}.color.jpg").write_bytes(raw)
+        (data / f"frame-{i:06d}.pose.txt").write_text(pose)
+    rng = np.random.default_rng(3)
+    lines = []
+    (d / "aachen_images" / "db").mkdir(parents=True)
+    for b, loc in enumerate([(0, 0, 0), (50, 0, 0), (0, 50, 0)]):
+        for i in range(3):
+            (d / "aachen_images" / "db" / f"im{b}_{i}.jpg").write_bytes(raw)
+            q = rng.normal(size=4)
+            c = np.asarray(loc) + rng.normal(0, 0.5, 3)
+            lines.append(f"db/im{b}_{i}.jpg {' '.join(map(str, q))} "
+                         f"{c[0]} {c[1]} {c[2]} 800.0")
+    (d / "aachen_poses.txt").write_text("\n".join(lines))
+    runs = {
+        "setup_7scenes": (setup_7scenes, ["--source", str(d / "raw7"), "--dest",
+                                          str(d / "7scenes"), "--scenes", "chess"]),
+        "setup_12scenes": (setup_12scenes, ["--source", str(d / "raw12"), "--dest",
+                                            str(d / "12scenes"), "--scenes", "apt1/kitchen",
+                                            "--test-frames", "2"]),
+        "setup_aachen": (setup_aachen, ["--images", str(d / "aachen_images"), "--poses",
+                                        str(d / "aachen_poses.txt"), "--dest",
+                                        str(d / "aachen"), "--clusters", "3"]),
+    }
+    files = {}
+    for name, (module, argv) in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(argv)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit code {rc}: {buf.getvalue()}")
+        dest = pathlib.Path(argv[argv.index("--dest") + 1])
+        files[name] = sum(1 for p in dest.rglob("*") if p.is_file())
+        log(f"[workflow] {name}: {buf.getvalue().strip()}; {files[name]} files")
+    want = {"setup_7scenes": 4 * 3 + 2, "setup_12scenes": 5 * 3, "setup_aachen": 9 * 3 + 1}
+    if files != want:
+        raise AssertionError(f"setup scripts wrote {files} files, expected {want}")
+    meta = json.loads((d / "aachen" / "clusters.json").read_text())
+    if sorted(meta["sizes"]) != [3, 3, 3]:
+        raise AssertionError(f"setup_aachen clusters {meta}")
+    for pose_file in (d / "aachen").rglob("poses/*.txt"):
+        T = np.loadtxt(pose_file)
+        R = T[:3, :3]
+        if not (np.allclose(R @ R.T, np.eye(3), atol=1e-5) and np.allclose(T[3], [0, 0, 0, 1])):
+            raise AssertionError(f"{pose_file}: not a rigid camera-to-world pose")
+    if (d / "7scenes" / "chess" / "training" / "rgb" / "seq01-frame-000000.png").read_bytes() \
+            != raw:
+        raise AssertionError("setup_7scenes: the linked image differs from its source")
+    return files
 
 
 # Phase 8: the server.  Request counts of its checks (the overload drill's

@@ -2,10 +2,12 @@
 ``esac_tpu/cli.py``): ``esac_tpu_torch/scripts/{train_expert, train_gating,
 train_esac, test_esac}.py``, run as ``python -m esac_tpu_torch.scripts.<name>``.
 
-The flags are the JAX scripts', without ``--backend`` (the C++ backend
-has no counterpart yet).  Scripts run on the card; ``--cpu`` runs the
-plain PyTorch versions on the CPU, and without it a machine with no CUDA
-raises.
+The flags are the JAX scripts'.  ``--backend`` keeps their spelling and
+default: ``jax`` (the default) means the port's own tensor path, ``cpp`` the
+C++ hypothesis loop of ``esac_cpp/`` on the host (``esac_tpu_torch.backends``;
+``train_esac`` and ``test_esac`` take it, the CNNs staying on the device).
+Scripts run on the card; ``--cpu`` runs the plain PyTorch versions on the
+CPU, and without it a machine with no CUDA raises.
 
 ``--sharded`` (``train_esac``, ``test_esac``) runs the expert-sharded path
 of ``esac_tpu_torch.parallel`` over ``torch.distributed`` ranks
@@ -39,6 +41,10 @@ from esac_tpu_torch.utils.precision import resolve_device
 
 def common_parser(desc: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=desc)
+    p.add_argument("--backend", choices=("jax", "cpp"), default="jax",
+                   help="hypothesis-loop implementation: jax (the JAX scripts' "
+                        "name, kept) = the port's own tensor path on the device; "
+                        "cpp = the C++ loop of esac_cpp/ on the host, once a frame")
     p.add_argument("--root", default="datasets", help="dataset root directory")
     p.add_argument("--size", choices=tuple(EXPERT_PRESETS), default="ref",
                    help="network size preset")

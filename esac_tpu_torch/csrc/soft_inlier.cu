@@ -42,8 +42,9 @@
 //   thread keeps the first max of its hypotheses' scores, and a fixed-shape
 //   tree over (score, index) pairs keeps the greater score and, on equal
 //   scores, the smaller index -- jnp.argmax's first-max contract without
-//   relying on block order.  It then copies the winner's 12-float pose row
-//   bit-exactly.
+//   relying on block order.  As in torch.argmax and jnp.argmax, NaN counts
+//   as greater than every number: the first NaN wins and carries its NaN
+//   score.  It then copies the winner's 12-float pose row bit-exactly.
 // Both final passes sum a hypothesis' partials with the one helper
 // hypothesis_score, in the order s = 0..S-1 from 0.0f.  So for one set of
 // operands and one split, the score entry's scores at the select entry's
@@ -80,6 +81,15 @@ struct alignas(16) Cell {
   float py, pad[3];
 };
 
+// max(a, b) that returns NaN when either is NaN (PTX max.NaN, sm_80 and up;
+// one instruction, as fmaxf): jnp.maximum and torch.clamp propagate a NaN
+// depth, where fmaxf would return the other operand.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // One (hypothesis, cell) term of the score; q is [R row-major | t].
 __device__ __forceinline__ float pair_score(const float (&q)[12], float X0, float X1,
                                             float X2, float px, float py, float f,
@@ -87,7 +97,7 @@ __device__ __forceinline__ float pair_score(const float (&q)[12], float X0, floa
   const float Yx = q[0] * X0 + q[1] * X1 + q[2] * X2 + q[9];
   const float Yy = q[3] * X0 + q[4] * X1 + q[5] * X2 + q[10];
   const float Yz = q[6] * X0 + q[7] * X1 + q[8] * X2 + q[11];
-  const float inv_z = __frcp_rn(fmaxf(Yz, kMinDepth));
+  const float inv_z = __frcp_rn(max_nan(Yz, kMinDepth));
   const float du = f * Yx * inv_z + cx - px;
   const float dv = f * Yy * inv_z + cy - py;
   float err = sqrtf(du * du + dv * dv + 1e-12f);
@@ -162,9 +172,19 @@ sum_kernel(const float* __restrict__ part, int H, int n_chunks, float* __restric
                                                        n_chunks, h);
 }
 
+// a > b in torch.argmax's order, where NaN is greater than every number.
+__device__ __forceinline__ bool argmax_greater(float a, float b) {
+  return a > b || (isnan(a) && !isnan(b));
+}
+
+// a == b in that order: two NaNs are equal.
+__device__ __forceinline__ bool argmax_equal(float a, float b) {
+  return a == b || (isnan(a) && isnan(b));
+}
+
 // (s, i) <- (os, oi) if os is greater, or equal with a smaller index.
 __device__ __forceinline__ void keep_first_max(float& s, int& i, float os, int oi) {
-  if (os > s || (os == s && oi < i)) { s = os; i = oi; }
+  if (argmax_greater(os, s) || (argmax_equal(os, s) && oi < i)) { s = os; i = oi; }
 }
 
 __device__ __forceinline__ void warp_first_max(float& s, int& i) {
@@ -188,12 +208,12 @@ select_final_kernel(const float* __restrict__ poses, const float* __restrict__ p
   const float* pp = part + (size_t)p * n_chunks * H;
 
   // Hypotheses in increasing order, strictly greater only: the thread's
-  // first max.  A NaN score never wins.
+  // first max, its first NaN once it has one.
   float best = -INFINITY;
   int bi = INT_MAX;
   for (int h = tid; h < H; h += kFinalThreads) {
     const float score = hypothesis_score(pp, H, n_chunks, h);
-    if (score > best) { best = score; bi = h; }
+    if (argmax_greater(score, best)) { best = score; bi = h; }
   }
   warp_first_max(best, bi);
   if (lane == 0) { w_score[warp] = best; w_idx[warp] = bi; }
@@ -203,7 +223,7 @@ select_final_kernel(const float* __restrict__ poses, const float* __restrict__ p
     bi = lane < kFinalWarps ? w_idx[lane] : INT_MAX;
     warp_first_max(best, bi);
     if (lane == 0) {
-      if (bi >= H) bi = 0;  // every score NaN
+      if (bi >= H) bi = 0;  // every score -inf: torch.argmax gives 0, score -inf
       best_score[p] = best;
       best_idx[p] = bi;
       s_best = bi;

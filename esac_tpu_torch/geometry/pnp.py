@@ -245,6 +245,43 @@ def refine_pose_gn_R(
     return R, tvec
 
 
+def refine_pose_gn(
+    rvec: torch.Tensor,
+    tvec: torch.Tensor,
+    X: torch.Tensor,
+    x2d: torch.Tensor,
+    f,
+    c: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    iters: int = 5,
+    damping: float = 1e-4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Gauss-Newton on the 6-DoF pose, a fixed number of steps,
+    at the axis-angle boundary (counterpart of ``refine_pose_gn``): rvec,
+    tvec (..., 3), X (..., N, 3), x2d (..., N, 2), ``weights`` (..., N)
+    per-point (soft-inlier) weights, None for uniform.  Returns the refined
+    (rvec, tvec); inside the batched loop use :func:`refine_pose_gn_R`."""
+    R, t = refine_pose_gn_R(rodrigues(rvec), tvec, X, x2d, f, c, weights, iters, damping)
+    return so3_log(R), t
+
+
+def pnp_success(
+    rvec: torch.Tensor,
+    tvec: torch.Tensor,
+    X4: torch.Tensor,
+    x4: torch.Tensor,
+    f,
+    c: torch.Tensor,
+    threshold: float,
+) -> torch.Tensor:
+    """Did the minimal solve fit its own 4 points within ``threshold`` px
+    (counterpart of ``pnp_success``)?  The reference accepts a hypothesis
+    only then; here a boolean (...) for masks and diagnostics."""
+    f = torch.as_tensor(f, dtype=X4.dtype, device=X4.device)
+    errs = reprojection_errors(rodrigues(rvec), tvec, X4, x4, f, c)
+    return torch.all(errs < threshold, dim=-1)
+
+
 def solve_pnp_minimal(
     X4: torch.Tensor,
     x4: torch.Tensor,

@@ -101,6 +101,22 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return torch.where(small_total[..., None], w * 0.5, axis * theta[..., None])
 
 
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix, (..., 4) -> (..., 3, 3)
+    (the SfM pose import of ``scripts/setup_aachen.py``); normalizes
+    defensively."""
+    q = q / safe_norm(q)[..., None]
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
 def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
     """Rotation angle of R in degrees. (..., 3, 3) -> (...)."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

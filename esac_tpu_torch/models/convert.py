@@ -15,6 +15,10 @@ original ESAC's ``torch.save(net.state_dict())`` files straight into the
 port's modules (the counterpart of ``torch_state_dict_to_flax``): both
 layouts are PyTorch's, so weights copy as they are, matched by layer order
 (the reference nets are plain sequential stacks; names need not match).
+:func:`reference_expert_state_dict` / :func:`reference_gating_state_dict`
+are their inverses: a port model written as such a state dict, which
+``torch.save`` stores for the original code and which the JAX package's
+``torch_state_dict_to_flax`` reads back.
 """
 
 from __future__ import annotations
@@ -165,3 +169,28 @@ def load_reference_gating(net: GatingNet, state_dict) -> GatingNet:
     then the two dense layers."""
     _load_in_order(list(net.convs) + [net.dense0, net.dense1], state_dict)
     return net
+
+
+def _state_dict_in_order(layers: list[nn.Module]) -> dict[str, torch.Tensor]:
+    """``layer{k}.weight`` / ``layer{k}.bias`` of each layer in order:
+    detached float32 CPU copies."""
+    sd = {}
+    for k, layer in enumerate(layers):
+        sd[f"layer{k}.weight"] = layer.weight.detach().float().cpu().clone()
+        if layer.bias is not None:
+            sd[f"layer{k}.bias"] = layer.bias.detach().float().cpu().clone()
+    return sd
+
+
+def reference_expert_state_dict(net: ExpertNet) -> dict[str, torch.Tensor]:
+    """``net`` as an original-ESAC expert state dict, layer k from
+    ``net.layers_in_flax_order()[k]`` (the inverse of
+    :func:`load_reference_expert`; the scene center is not a layer and is
+    not written)."""
+    return _state_dict_in_order(net.layers_in_flax_order())
+
+
+def reference_gating_state_dict(net: GatingNet) -> dict[str, torch.Tensor]:
+    """``net`` as an original-ESAC gating state dict: its convs, then the
+    two dense layers (the inverse of :func:`load_reference_gating`)."""
+    return _state_dict_in_order(list(net.convs) + [net.dense0, net.dense1])

@@ -27,6 +27,25 @@ def sample_correspondence_sets(
     )
 
 
+def sample_correspondence_sets_exact(
+    generator: torch.Generator,
+    n_hyps: int,
+    n_cells: int,
+    batch_shape: tuple[int, ...] = (),
+    set_size: int = 4,
+) -> torch.Tensor:
+    """The exact without-replacement variant (counterpart of
+    ``sample_correspondence_sets_exact``, Gumbel-top-k): each set is the
+    ``set_size`` largest of ``n_cells`` Gumbel draws, so its indices are
+    distinct and every cell is equally likely.  Costs a length-``n_cells``
+    top-k per hypothesis; for tests, not the default.  Returns
+    ``batch_shape + (n_hyps, set_size)`` int64 on the generator's device."""
+    shape = tuple(batch_shape) + (n_hyps, n_cells)
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.topk(gumbel, set_size, dim=-1).indices
+
+
 def sample_expert_indices(
     generator: torch.Generator,
     gating_probs: torch.Tensor,

@@ -11,6 +11,14 @@ its edge frame): the gating and expert CNNs, then ``esac_infer_frames``
 Per-frame times cover the whole pipeline, synchronized before each clock
 read, with the first batch dropped as warm-up.
 
+``--backend cpp`` runs the hypothesis loop in C++ on the host
+(``backends.esac_infer_gated_cpp``), once a frame on host copies of the
+CNNs' output, with the frame's index as its seed and hypotheses x M
+hypotheses drawn over the experts from the gating distribution; the CNNs
+stay on the device.  That loop draws its experts per hypothesis, so no
+evaluated set exists (no recall) and it reports no scores (score and margin
+null).
+
 ``--sharded`` runs config #4's gating-routed path over ``torch.distributed``
 ranks (``parallel.esac_infer_routed``; ``cli.run_sharded`` starts the
 ranks): the experts padded to a multiple of the rank count, each rank
@@ -85,6 +93,8 @@ def _args(argv):
     args = p.parse_args(argv)
     if len(args.experts) != len(args.scenes):
         p.error("need one --experts checkpoint per scene")
+    if args.sharded and args.backend != "jax":
+        p.error("--sharded is a jax-backend mode")
     if args.sharded and args.topk:
         p.error("--sharded and --topk are mutually exclusive; use --capacity "
                 "for gating-pruned compute on the mesh")
@@ -116,7 +126,7 @@ def sharded_rank(argv) -> int:
 
 def _evaluate(args, dev, mesh=None) -> int:
     """The evaluation; ``mesh`` for --sharded (rank 0 prints and writes)."""
-    backend = f"torch-{dev.type}"
+    backend = "cpp" if args.backend == "cpp" else f"torch-{dev.type}"
     writer = mesh is None or mesh.get_rank() == 0
 
     datasets = [open_scene(args.root, s, "test", expert=i, device=dev, **scene_kwargs(args))
@@ -156,6 +166,7 @@ def _evaluate(args, dev, mesh=None) -> int:
     images_d = torch.stack([f.image for f in frames])
     focals_d = torch.as_tensor([f.focal for f in frames], dtype=torch.float32, device=dev)
     labels_h = np.asarray([f.expert for f in frames])
+    focals_h = focals_d.cpu().numpy()
     R_gts = rodrigues(torch.stack([f.rvec for f in frames]))
     t_gts = torch.stack([f.tvec for f in frames])
 
@@ -170,6 +181,8 @@ def _evaluate(args, dev, mesh=None) -> int:
     # the evaluated set (did the true expert's CNN run: 100% when dense).
     gate_top1 = 0
     recall_hits = 0
+    # The cpp loop draws experts per hypothesis: no fixed evaluated set.
+    recall_defined = args.backend != "cpp"
     B = max(1, args.eval_batch)
     for start in range(0, n_total, B):
         sel = np.arange(start, min(start + B, n_total))
@@ -188,18 +201,26 @@ def _evaluate(args, dev, mesh=None) -> int:
                 coords_all, logits = scene_forward(scene, images_d[pad])
                 wait_for(coords_all)
                 t0 = time.perf_counter()
-                if args.topk > 0:
+                if args.backend == "cpp":
+                    out = _infer_gated_cpp(coords_all, logits, pixels, focals_h[pad_h],
+                                           (W / 2.0, H / 2.0), cfg, args.hypotheses * M,
+                                           pad_h, dev)
+                elif args.topk > 0:
                     out = esac_infer_topk_frames(gens, logits, coords_all, pixels,
                                                  focals_d[pad], cx, cfg, k=args.topk,
                                                  device=dev)
                 else:
                     out = esac_infer_frames(gens, logits, coords_all, pixels, focals_d[pad],
                                             cx, cfg, device=dev)
-            wait_for(out["rvec"])
+            wait_for(out["tvec"])
             now = time.perf_counter()
-            r_errs, t_errs = pose_errors(rodrigues(out["rvec"]), out["tvec"], R_gts[pad],
-                                         t_gts[pad])
-        if routed is not None:
+            R_b = out["R"] if "R" in out else rodrigues(out["rvec"])
+            r_errs, t_errs = pose_errors(R_b, out["tvec"], R_gts[pad], t_gts[pad])
+        if args.backend == "cpp":
+            dt_hyp = (now - t0) / len(pad)
+            ev_sets = None
+            b_scores = b_margins = np.full(len(pad), np.nan)
+        elif routed is not None:
             ev_sets = out["experts_evaluated"].cpu().numpy()
             b_scores = out["score"].double().cpu().numpy()
             b_margins = np.full(len(pad), np.nan)
@@ -225,7 +246,8 @@ def _evaluate(args, dev, mesh=None) -> int:
             label = int(labels_h[gi])
             expert_ok += int(experts[j]) == label
             gate_top1 += int(np.argmax(logits_np[j])) == label
-            recall_hits += 1 if ev_sets is None else label in ev_sets[j]
+            if recall_defined:
+                recall_hits += 1 if ev_sets is None else label in ev_sets[j]
             winners.append(int(experts[j]))
             winner_scores.append(None if np.isnan(b_scores[j]) else round(float(b_scores[j]), 3))
             winner_margins.append(
@@ -253,7 +275,8 @@ def _evaluate(args, dev, mesh=None) -> int:
     print(f"5cm/5deg:         {100.0 * ok / n_total:.1f}%")
     print(f"expert accuracy:  {100.0 * expert_ok / n_total:.1f}%")
     print(f"gating top-1:     {100.0 * gate_top1 / n_total:.1f}%")
-    print(f"evaluated recall: {100.0 * recall_hits / n_total:.1f}%  (true expert's CNN ran)")
+    if recall_defined:
+        print(f"evaluated recall: {100.0 * recall_hits / n_total:.1f}%  (true expert's CNN ran)")
     print(f"median time:      {1e3 * np.median(tm):.1f} ms/frame full pipeline "
           f"({args.hypotheses * n_hyp_experts} hyps, backend={backend}{mode})")
     if args.json:
@@ -266,7 +289,8 @@ def _evaluate(args, dev, mesh=None) -> int:
             "pct_5cm5deg": round(100.0 * ok / n_total, 2),
             "expert_accuracy_pct": round(100.0 * expert_ok / n_total, 2),
             "gating_top1_pct": round(100.0 * gate_top1 / n_total, 2),
-            "evaluated_recall_pct": round(100.0 * recall_hits / n_total, 2),
+            "evaluated_recall_pct": (round(100.0 * recall_hits / n_total, 2)
+                                     if recall_defined else None),
             "median_ms_per_frame": round(1e3 * float(np.median(tm)), 2),
             "timing_scope": "full pipeline: gating + expert CNN forwards + hypothesis "
                             "loop (median_hyploop_ms_per_frame is the hypothesis loop "
@@ -293,6 +317,28 @@ def _evaluate(args, dev, mesh=None) -> int:
             json.dump(record, fh, indent=2)
         print(f"wrote {args.json}")
     return 0
+
+
+def _infer_gated_cpp(coords_all, logits, pixels, focals, c, cfg, n_hyps, seeds, dev) -> dict:
+    """The C++ gated loop on host copies of a batch's CNN output, one call a
+    frame (seeded by the frame's index): the winners' R (B, 3, 3), tvec
+    (B, 3) and expert (B,) on ``dev``."""
+    from esac_tpu_torch.backends import esac_infer_gated_cpp
+
+    co_np = coords_all.float().cpu().numpy()
+    px_np = pixels.cpu().numpy()
+    gating_np = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+    Rs, ts, experts = [], [], []
+    for j, seed in enumerate(seeds):
+        r = esac_infer_gated_cpp(co_np[j], px_np, gating_np[j], float(focals[j]), c,
+                                 n_hyps=n_hyps, tau=cfg.tau, beta=cfg.beta,
+                                 refine_iters=cfg.refine_iters, seed=int(seed))
+        Rs.append(r["R"])
+        ts.append(r["t"])
+        experts.append(r["expert"])
+    return {"R": torch.as_tensor(np.stack(Rs), dtype=torch.float32, device=dev),
+            "tvec": torch.as_tensor(np.stack(ts), dtype=torch.float32, device=dev),
+            "expert": torch.as_tensor(experts, device=dev)}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,13 @@ scoring kernel once.  Fine-tune recipe from a strong stage-1/2 baseline:
 Writes ``<output>_state`` (resume-capable: experts, gating, Adam) and, at
 the end, ``<output>_expert{m}`` / ``<output>_gating``.
 
+``--backend cpp`` trains through the C++ extension, as the reference
+does: the CNNs run on the device, and each frame's expected losses of
+every expert come from ``esac_train_cpp`` on host copies of its
+coordinates (``backends.train_bridge``), whose coordinate gradients go
+back into the autograd backward; the frame's loss is
+``sum(softmax(logits) * E)`` (``--estimator dense`` only).
+
 ``--sharded`` trains with the experts split over ``torch.distributed``
 ranks (``parallel.make_sharded_esac_train_step``; ``cli.run_sharded``
 starts the ranks): the experts padded to a multiple of the rank count by
@@ -89,12 +96,19 @@ def _args(argv):
     if args.capacity < 0:
         p.error("--capacity must be >= 0")
     if args.sharded:
+        if args.backend != "jax":
+            p.error("--sharded is a jax-backend mode")
         if args.estimator != "dense":
             p.error("--sharded trains the dense estimator (the sampled/"
                     "REINFORCE draw has no per-device top-k structure)")
         if args.alpha_start is not None:
             p.error("--alpha-start with --sharded is not supported yet")
         check_sharded_devices(p, args)
+    if args.alpha_start is not None and args.backend == "cpp":
+        p.error("--alpha-start is a jax-backend option")
+    if args.backend == "cpp" and args.estimator != "dense":
+        p.error("--backend cpp supports --estimator dense only "
+                "(the extension implements the dense expectation)")
     return p, args
 
 
@@ -168,10 +182,17 @@ def _train(p, args, dev, timer, mesh=None) -> int:
     start_it = resume_train_state(args, state, nets, saved_opt, dev, timer, verbose=writer)
 
     clip = args.clip_norm if args.clip_norm > 0 else float("inf")
+    cpp_losses = None
+    if args.backend == "cpp":
+        # The reference trains through its C++ extension: one host call a
+        # frame, the extension's gradients injected into the backward.
+        from esac_tpu_torch.backends.train_bridge import make_cpp_expert_losses
+
+        cpp_losses = make_cpp_expert_losses(pixels, float(f0.focal), (W / 2.0, H / 2.0), cfg)
 
     def make_step(step_cfg):
         return make_esac_train_step(scene, opt, step_cfg, pixels, mode=args.estimator,
-                                    clip_norm=clip, device=dev)
+                                    clip_norm=clip, device=dev, expert_losses=cpp_losses)
 
     if mesh is not None:
         from esac_tpu_torch.parallel import make_sharded_esac_train_step

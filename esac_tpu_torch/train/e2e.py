@@ -20,6 +20,7 @@ from torch import nn
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.ransac.esac import _no_stage, esac_train_loss_frames
 from esac_tpu_torch.ransac.kernel import as_f32, dsac_train_loss_frames, frame_generators
+from esac_tpu_torch.ransac.sampling import sample_correspondence_sets
 from esac_tpu_torch.registry.serving import scene_forward
 from esac_tpu_torch.utils.precision import resolve_device
 
@@ -61,7 +62,8 @@ def make_dsac_train_step(net: nn.Module, optimizer: torch.optim.Optimizer,
 
 def make_esac_train_step(scene: dict, optimizer: torch.optim.Optimizer,
                          cfg: RansacConfig, pixels, mode: str = "dense",
-                         clip_norm: float = 1.0, device=None) -> Callable:
+                         clip_norm: float = 1.0, device=None,
+                         expert_losses: Callable | None = None) -> Callable:
     """Gating + M experts end-to-end step (BASELINE config #2; the port's
     counterpart of ``train_esac.py``'s jax-backend loss step).
 
@@ -80,6 +82,15 @@ def make_esac_train_step(scene: dict, optimizer: torch.optim.Optimizer,
     given, is called as each stage of the step has been issued:
     "cnn_forward", those of ``esac_train_loss_frames``, "backward",
     "optimizer" (a timing hook; it must not touch the tensors).
+
+    ``expert_losses`` (``train_esac --backend cpp``): a one-frame
+    ``(coords_all (M, N, 3), R_gt, t_gt, idx (M, n_hyps, 4)) -> (M,)``
+    differentiable in the coordinates,
+    ``backends.train_bridge.make_cpp_expert_losses``, in place of the
+    hypothesis loop.  Each frame's loss is then ``sum(softmax(logits) * E)``
+    (the dense estimator), ``idx`` drawn from the frame's generator as
+    ``cfg.n_hyps * M`` sets of ``sample_correspondence_sets`` (the stage
+    "cpp_losses" follows "cnn_forward").
     """
     dev = resolve_device(device)
     pixels = as_f32(pixels, dev)
@@ -92,10 +103,14 @@ def make_esac_train_step(scene: dict, optimizer: torch.optim.Optimizer,
         B = imgs.shape[0]
         coords, logits = scene_forward(scene, imgs)
         stage("cnn_forward")
-        losses, _ = esac_train_loss_frames(
-            step_generators(seed, B, dev), logits, coords, pixels, scene["f"].expand(B),
-            scene["c"], R_gts, t_gts, cfg, mode, idx=idx, experts=experts, device=dev,
-            on_stage=stage)
+        gens = step_generators(seed, B, dev)
+        if expert_losses is not None:
+            losses = _dense_losses(expert_losses, gens, logits, coords, R_gts, t_gts, cfg)
+            stage("cpp_losses")
+        else:
+            losses, _ = esac_train_loss_frames(
+                gens, logits, coords, pixels, scene["f"].expand(B), scene["c"], R_gts, t_gts,
+                cfg, mode, idx=idx, experts=experts, device=dev, on_stage=stage)
         loss = losses.mean()
         loss.backward()
         stage("backward")
@@ -105,3 +120,16 @@ def make_esac_train_step(scene: dict, optimizer: torch.optim.Optimizer,
         return loss.detach()
 
     return step
+
+
+def _dense_losses(expert_losses, gens, logits, coords, R_gts, t_gts, cfg) -> torch.Tensor:
+    """Each frame's ``sum(softmax(logits) * E)`` with ``E`` from
+    ``expert_losses`` on that frame's coordinates (B, M, N, 3) and sets drawn
+    from its generator (counterpart of train_esac.py's ``frame_loss``)."""
+    M, N = coords.shape[1], coords.shape[2]
+    losses = []
+    for b, gen in enumerate(gens):
+        idx = sample_correspondence_sets(gen, cfg.n_hyps * M, N).reshape(M, cfg.n_hyps, 4)
+        E = expert_losses(coords[b], R_gts[b], t_gts[b], idx)
+        losses.append(torch.sum(torch.softmax(logits[b].float(), dim=-1) * E))
+    return torch.stack(losses)

@@ -29,8 +29,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COMMON = ["--cpu", "--size", "test", "--batch", "2", "--frames", "4", "--learningrate", "1e-3"]
 PORT = {"train_expert": train_expert, "train_gating": train_gating, "train_esac": train_esac,
         "test_esac": test_esac}
-# Flags of the JAX scripts the port has no counterpart for.
-ABSENT = {"backend"}
+# Flags of the JAX scripts the port has no counterpart for: none.
+ABSENT = set()
 
 
 def run(module, argv):
@@ -287,7 +287,7 @@ def test_flags_equal_the_jax_scripts(name, monkeypatch):
         ours = _parser_of(PORT[name].main, monkeypatch)
     want = {k: v for k, v in _surface(ref).items() if k not in ABSENT}
     assert _surface(ours) == want
-    assert ABSENT & set(_surface(ref)) and not ABSENT & set(_surface(ours))
+    assert ABSENT <= set(_surface(ref)) and not ABSENT & set(_surface(ours))
 
 
 @pytest.mark.parametrize("name", sorted(PORT))
@@ -336,3 +336,59 @@ def test_load_esac_scene_refuses_mixed_sizes(pipeline, tmp_path):
     scene, e_cfgs, _ = cli.load_esac_scene([d / "e0", d / "e1"], d / "g", 1.0, (0.0, 0.0),
                                            "cpu")
     assert len(scene["expert"]) == 2 and [c["scene"] for c in e_cfgs] == ["synth0", "synth1"]
+
+
+@pytest.fixture(scope="module")
+def cpp_runs(pipeline):
+    """train_esac --backend cpp (2 iterations from the stage-1/2
+    checkpoints), then test_esac --backend cpp on its output."""
+    d = pipeline["dir"]
+    out = {"train": run(train_esac, ["synth0", "synth1", *COMMON, "--iterations", "2",
+                                     "--hypotheses", "16", "--backend", "cpp",
+                                     *pipeline["ckpts"], "--output", str(d / "cpp")])}
+    out["eval"] = run(test_esac, ["synth0", "synth1", "--cpu", "--size", "test", "--frames",
+                                  "4", "--hypotheses", "16", "--limit", "3", "--eval-batch",
+                                  "4", "--backend", "cpp", "--experts", str(d / "cpp_expert0"),
+                                  str(d / "cpp_expert1"), "--gating", str(d / "cpp_gating"),
+                                  "--json", str(d / "cpp.json")])
+    out["record"] = json.loads((d / "cpp.json").read_text())
+    return out
+
+
+def test_cpp_backend_trains_with_finite_losses(cpp_runs):
+    lines = cpp_runs["train"].splitlines()
+    losses = [float(ln.split("E[pose loss]")[1].split()[0]) for ln in lines]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def test_cpp_backend_evaluates_with_the_jax_scripts_keys(cpp_runs):
+    """The JAX script's JSON keys; no evaluated set (no recall) and no
+    scores on the cpp path, as in the JAX script; 16 x 2 hypotheses a frame
+    drawn over the experts."""
+    keys, per_frame = _json_dump_keys(ROOT / "test_esac.py")
+    record = cpp_runs["record"]
+    assert list(record) == keys and list(record["per_frame"]) == per_frame
+    assert record["backend"] == "cpp" and record["frames"] == 6
+    assert record["evaluated_recall_pct"] is None and record["hypotheses_total"] == 32
+    assert record["per_frame"]["winner_score"] == [None] * 6
+    assert record["per_frame"]["winner_margin"] == [None] * 6
+    assert np.isfinite(record["per_frame"]["rot_err_deg"]).all()
+    assert record["median_hyploop_ms_per_frame"] is not None
+    lines = cpp_runs["eval"].splitlines()
+    assert not any(ln.startswith("evaluated recall") for ln in lines)
+    assert "backend=cpp)" in next(ln for ln in lines if ln.startswith("median time"))
+
+
+@pytest.mark.parametrize("name,argv,text", [
+    ("test_esac", ["--sharded"], "--sharded is a jax-backend mode"),
+    ("train_esac", ["--sharded"], "--sharded is a jax-backend mode"),
+    ("train_esac", ["--estimator", "sampled"], "--backend cpp supports --estimator dense only"),
+    ("train_esac", ["--alpha-start", "0.1"], "--alpha-start is a jax-backend option"),
+])
+def test_cpp_backend_refuses_what_the_jax_scripts_refuse(name, argv, text, capsys):
+    """The JAX scripts' parser errors, with their texts."""
+    assert text in (ROOT / f"{name}.py").read_text()
+    with pytest.raises(SystemExit) as exit_:
+        PORT[name].main(["synth0", "--cpu", "--experts", "e", "--gating", "g",
+                         "--backend", "cpp", *argv])
+    assert exit_.value.code == 2 and text in capsys.readouterr().err

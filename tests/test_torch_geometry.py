@@ -173,3 +173,79 @@ def test_refine_soft_inliers_matches_jax():
     for b in range(2):
         np.testing.assert_allclose(rt[b].numpy(), np.asarray(rj), atol=1e-4)
         np.testing.assert_allclose(tt[b].numpy(), np.asarray(tj), atol=1e-4)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_refine_pose_gn_matches_jax(weighted):
+    """Axis-angle GN from a perturbed start on 16 problems of the generator
+    of tests/test_pnp.py, 12 points each with 0.5 px noise, batched on the
+    port side: both packages reach the same pose (1e-4 rad / 1e-4 m, float32
+    jitter through 5 GN solves), closer to the ground truth than the start."""
+    rng = np.random.default_rng(8)
+    R_gt, t_gt, _, _ = _pnp_problems(8, n=16)
+    X = (rng.uniform(-1.5, 1.5, (16, 12, 3)) + [0.0, 0.0, 4.0]).astype(np.float32)
+    Y = np.einsum("nij,nkj->nki", R_gt, X) + t_gt[:, None]
+    x2d = (Y[..., :2] / Y[..., 2:] * F + C + rng.normal(0, 0.5, (16, 12, 2))).astype(np.float32)
+    rv0 = (np.asarray(jax.vmap(jrot.so3_log)(R_gt)) + rng.normal(0, 0.03, (16, 3))).astype(
+        np.float32)
+    tv0 = (t_gt + rng.normal(0, 0.05, (16, 3))).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, (16, 12)).astype(np.float32) if weighted else None
+    rj, tj = jax.vmap(lambda r, t, Xi, xi, wi: jpnp.refine_pose_gn(r, t, Xi, xi, F, C, wi))(
+        rv0, tv0, X, x2d, w if weighted else np.ones((16, 12), np.float32))
+    rt, tt = tpnp.refine_pose_gn(_t(rv0), _t(tv0), _t(X), _t(x2d), torch.tensor(F), _t(C),
+                                 None if w is None else _t(w))
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=1e-4)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
+    rot, trans = tcam.pose_errors(trot.rodrigues(rt), tt, _t(R_gt), _t(t_gt))
+    rot0, trans0 = tcam.pose_errors(trot.rodrigues(_t(rv0)), _t(tv0), _t(R_gt), _t(t_gt))
+    assert float(rot.median()) < float(rot0.median())
+    assert float(trans.median()) < float(trans0.median())
+
+
+def test_pnp_success_matches_jax():
+    """The GT poses of 64 problems fit their 4 points within 2 px; moved by
+    5 cm, most do not; a point behind the camera fails its +1000 px: the
+    two packages' predicates agree everywhere."""
+    R_gt, t_gt, X4, x4 = _pnp_problems(9)
+    rv = np.asarray(jax.vmap(jrot.so3_log)(R_gt))
+    tv = np.stack([t_gt, t_gt + np.float32(0.05)])
+    X4b = X4.copy()
+    X4b[::7, 2] = [0.0, 0.0, -10.0]
+    for X in (X4, X4b):
+        for t in tv:
+            want = np.asarray(jax.vmap(lambda r, ti, Xi, xi: jpnp.pnp_success(
+                r, ti, Xi, xi, F, C, 2.0))(rv, t, X, x4))
+            got = tpnp.pnp_success(_t(rv), _t(t), _t(X), _t(x4), torch.tensor(F), _t(C), 2.0)
+            np.testing.assert_array_equal(got.numpy(), want)
+            if X is X4b:
+                assert not got[::7].any()
+    assert want.sum() < 32 and got.dtype == torch.bool
+    exact = tpnp.pnp_success(_t(rv), _t(t_gt), _t(X4), _t(x4), torch.tensor(F), _t(C), 2.0)
+    assert bool(exact.all())
+
+
+def test_exact_sampler_draws_distinct_uniform_sets():
+    """Gumbel-top-4 on an explicit generator: 4 distinct indices a set,
+    uniform marginals (chi-square of the cell counts below the 0.999
+    quantile, as the JAX sampler's on its own draws), batch shape and device
+    kept, a seeded generator repeating its draws."""
+    from esac_tpu.ransac.sampling import sample_correspondence_sets_exact as j_exact
+    from esac_tpu_torch.ransac.sampling import sample_correspondence_sets_exact
+
+    n_cells, n_hyps = 40, 3000
+    got = sample_correspondence_sets_exact(torch.Generator().manual_seed(1), n_hyps, n_cells)
+    want = np.asarray(j_exact(jax.random.key(1), n_hyps, n_cells))
+    assert got.shape == want.shape == (n_hyps, 4) and got.dtype == torch.int64
+    chi2_999 = 73.4  # 0.999 quantile of chi-square with 39 degrees of freedom
+    for draws in (got.numpy(), want):
+        assert all(len(set(row)) == 4 for row in draws.tolist())
+        counts = np.bincount(draws.ravel(), minlength=n_cells)
+        expect = 4 * n_hyps / n_cells
+        assert ((counts - expect) ** 2 / expect).sum() < chi2_999
+        for j in range(4):  # each position alone is uniform too
+            col = np.bincount(draws[:, j], minlength=n_cells)
+            assert ((col - n_hyps / n_cells) ** 2 / (n_hyps / n_cells)).sum() < chi2_999
+    batched = sample_correspondence_sets_exact(torch.Generator().manual_seed(1), 5, 9, (2, 3))
+    assert batched.shape == (2, 3, 5, 4) and int(batched.max()) < 9
+    assert torch.equal(got, sample_correspondence_sets_exact(
+        torch.Generator().manual_seed(1), n_hyps, n_cells))

@@ -17,7 +17,11 @@ import torch
 from esac_tpu.models import ExpertNet as JExpertNet
 from esac_tpu.models import GatingNet as JGatingNet
 from esac_tpu.utils.checkpoint import load_checkpoint
-from esac_tpu_torch.models.convert import load_expert, load_gating
+from esac_tpu.models.convert import torch_state_dict_to_flax
+from esac_tpu_torch.models.convert import (
+    load_expert, load_gating, load_reference_expert, load_reference_gating,
+    reference_expert_state_dict, reference_gating_state_dict,
+)
 from esac_tpu_torch.models.expert import ExpertNet
 from esac_tpu_torch.models.gating import GatingNet
 from esac_tpu_torch.models.presets import EXPERT_PRESETS, GATING_PRESETS
@@ -88,3 +92,36 @@ def test_bridge_rejects_a_preset_that_does_not_fit():
         jax.random.key(0), _image(0, 16, 16, batch=1))
     with pytest.raises(ValueError):
         load_expert(ExpertNet(**EXPERT_PRESETS["small"]), _np_tree(params))
+
+
+@pytest.mark.parametrize("kind,preset", [("expert", "test"), ("expert", "ref_depth1"),
+                                         ("gating", "test")])
+def test_reference_state_dict_round_trips_to_the_flax_tree(kind, preset):
+    """A Flax tree -> the port's module (load_expert / load_gating) -> an
+    original-ESAC state dict (reference_*_state_dict) -> the JAX package's
+    torch_state_dict_to_flax: the same tree, bit for bit; and the state
+    dict loads back into a fresh module with load_reference_*."""
+    img = _image(4, 16, 24, batch=1)
+    if kind == "expert":
+        arch = EXPERT_PRESETS["test"] if preset == "test" else REF_NARROW_DEPTH
+        params = JExpertNet(compute_dtype=jnp.float32, **arch).init(jax.random.key(4), img)
+        make = lambda: ExpertNet(compute_dtype=torch.float32, **arch)  # noqa: E731
+        net = load_expert(make(), _np_tree(params))
+        sd, load_ref = reference_expert_state_dict(net), load_reference_expert
+    else:
+        chans = GATING_PRESETS["test"]["channels"]
+        params = JGatingNet(num_experts=5, channels=chans, compute_dtype=jnp.float32).init(
+            jax.random.key(4), img)
+        make = lambda: GatingNet(5, chans, compute_dtype=torch.float32)  # noqa: E731
+        net = load_gating(make(), _np_tree(params))
+        sd, load_ref = reference_gating_state_dict(net), load_reference_gating
+    assert all(v.dtype == torch.float32 and v.device.type == "cpu" for v in sd.values())
+    back = torch_state_dict_to_flax(sd, params["params"])
+    want = jax.tree.leaves_with_path(params["params"])
+    got = jax.tree.leaves_with_path(back)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(path))
+    again = load_ref(make(), sd)
+    for (name, a), (_, b) in zip(again.state_dict().items(), net.state_dict().items()):
+        assert torch.equal(a, b), name

@@ -139,6 +139,51 @@ def test_select_crafted_ties_first_max_wins(dup):
     np.testing.assert_array_equal(pose[:9].numpy(), Rs[min(w, d)].reshape(9))
 
 
+def _nan_planted():
+    """Three problems of one frame's H = 40 hypotheses with NaN planted in
+    t: at a hypothesis before the finite winner and at one after it (two
+    NaNs), after it only, and at every hypothesis.  Returns rvecs, tvecs,
+    coords, pixels and the finite winner."""
+    coords, pixels, rv, _, tv = _fixture(0)
+    w = int(np.argmax(np.asarray(j_scores(np.asarray(jax.vmap(j_rodrigues)(rv)), tv, coords,
+                                          pixels, F, C, 10.0, 0.5, interpret=True))))
+    assert 0 < w < 39, w
+    tvs = np.stack([tv, tv, tv]).copy()
+    tvs[0, [w - 1, w + 1], 2] = np.nan
+    tvs[1, w + 1, 0] = np.nan
+    tvs[2, :, 1] = np.nan
+    return np.stack([rv] * 3), tvs, np.stack([coords] * 3), pixels, w
+
+
+def test_every_selection_follows_argmax_on_nan_scores():
+    """A NaN score wins as torch.argmax and jnp.argmax rank it: the first
+    NaN by index, its score NaN, before a finite max; every NaN -> index 0
+    with score NaN.  The select kernel's plain version, the "fused_select",
+    "pallas" and "errmap" selections of ransac.kernel._infer_winner and
+    jnp.argmax on the same scores all agree."""
+    from esac_tpu_torch.geometry.rotations import rodrigues
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.ransac.kernel import _infer_winner
+
+    rv, tv, coords, pixels, w = _nan_planted()
+    want_idx = [w - 1, w + 1, 0]
+    args = (rodrigues(_t(rv)), _t(tv), _t(coords), _t(pixels), torch.full((3,), F), _t(C))
+    scores = fs._scores_plain(*args, 10.0, 0.5)
+    assert torch.isnan(scores[2]).all() and torch.isfinite(scores[:2, :w - 1]).all()
+    plain_i, plain_s, plain_pose = fs._select_plain(*args, 10.0, 0.5)
+    assert plain_i.tolist() == torch.argmax(scores, dim=-1).tolist() == want_idx
+    assert torch.isnan(plain_s).all()
+    np.testing.assert_array_equal(np.asarray(jax.numpy.argmax(scores.numpy(), axis=-1)),
+                                  want_idx)
+    np.testing.assert_array_equal(plain_pose[:, 9:].numpy(), tv[[0, 1, 2], want_idx])
+    for impl in ("fused_select", "pallas", "errmap"):
+        best, best_score, _ = _infer_winner(_t(rv), _t(tv), _t(coords), _t(pixels),
+                                            torch.full((3,), F), _t(C),
+                                            RansacConfig(n_hyps=40, scoring_impl=impl))
+        assert best.tolist() == want_idx, impl
+        assert torch.isnan(best_score).all(), impl
+
+
 @pytest.mark.parametrize("impl", ["errmap", "fused"])
 def test_chunked_scores_match_jax(impl):
     """The "errmap" / "fused" inference paths' chunked scoring
