@@ -224,7 +224,28 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  two timeline windows and the Prometheus page of its
                  snapshot names every registered collector.  Times of legs
                  b and c are of two processes sharing one card through
-                 gloo's host staging: they measure no interconnect.
+                 gloo's host staging: they measure no interconnect;
+11. lint      -- the port's lint witnesses (esac_tpu_torch.lint) on the card.
+                 (a) the degenerate-input gradient witness
+                 (gradcheck.run_gradcheck(device="cuda")): 10 witnesses x the
+                 8 committed corpus cases (1 problem, 4 hypotheses, 16 cells:
+                 below one 32-cell chunk), every output and every gradient
+                 finite, exactly 8 score and 8 select launches (one forward a
+                 case each; the backwards are plain), the scoring kernel's
+                 scores and the select's winner against their plain versions
+                 on each case's own inputs (phase 3's NaN-aware tolerance;
+                 winners equal where the plain top two are clear, a plain
+                 near-maximum otherwise), tie_scores won by index 0, and the
+                 select's backward (SoftInlierScoreSelect) run on every case;
+                 the sweep's ms.  (b) a LockWitness attached to phase 8's
+                 overload drill and hot swap and phase 9's failover leg (and
+                 the legs after it; never the timed closed and open loops):
+                 every observed edge inside the committed lock_graph.json
+                 order, every observed lock one of its nodes.  (c) an
+                 OutcomeWitness on the same legs: every observed error type a
+                 member of fault_taxonomy.json, every (type, outcome) pair on
+                 a committed edge.  Phase 3 holds both kernels at the corpus
+                 shape (lint_corpus).
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -239,7 +260,8 @@ nothing).
 Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
 {"fleet": {...}}, one JSON line {"parallel": {...}}, one JSON line
-{"kernels": [...]} and the nvidia-smi name/power-limit line; the last
+{"lint": {...}}, one JSON line {"kernels": [...]} and the nvidia-smi
+name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -316,6 +338,10 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     "sharded_padded": (4, 4, 256, 480, 640),
     "sharded_train_dense": (2, 8, 256, 480, 640),
     "sharded_train_capacity2": (2, 2, 256, 480, 640),
+    # Phase 11's gradient witness: the degenerate corpus's one problem of
+    # 4 hypotheses over 16 cells (a 32 x 32 frame on the stride-8 grid),
+    # below one 32-cell chunk of fused_scoring.cell_chunks.
+    "lint_corpus": (1, 1, 4, 32, 32),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
 # Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
@@ -2118,10 +2144,12 @@ def _finite_rows(rows, what):
             raise AssertionError(f"{what}: a non-finite pose")
 
 
-def phase_server(dev, seed, preset=None, size=SERVER):
+def phase_server(dev, seed, preset=None, size=SERVER, witness=None):
     """Phase 8 (module docstring): the serving front end on the card -- a
     manifest of three random-init scene versions (and a NaN one) in
-    registry checkpoints, SceneRegistry(...).dispatcher(cfg), requests."""
+    registry checkpoints, SceneRegistry(...).dispatcher(cfg), requests.
+    ``witness`` (phase 11's lock and outcome witnesses) rides the overload
+    drill and the hot swap."""
     import dataclasses
     import threading
 
@@ -2282,7 +2310,12 @@ def phase_server(dev, seed, preset=None, size=SERVER):
         drill = reg.dispatcher(dataclasses.replace(cfg, serve_queue_depth=size["overload_queue"]),
                                slo=SLOPolicy(deadline_ms=size["deadline_ms"],
                                              watchdog_ms=30_000.0),
-                               warm_frame=frames(1)[0])
+                               start_worker=False, warm_frame=frames(1)[0])
+        if witness is not None:
+            # Before the drill's worker starts; the registry's locks are
+            # plain locks, wrapped while the (idle) main dispatcher runs.
+            witness["lock"].attach_fleet(disp=drill, registry=reg)
+        drill.start()
         drill_arrivals = poisson_arrivals(size["overload_load"] * fps, size["overload"],
                                           seed=seed + 1)
         try:
@@ -2307,6 +2340,8 @@ def phase_server(dev, seed, preset=None, size=SERVER):
                 or drill_s > drill_arrivals[-1] + settle):
             raise AssertionError(f"check 3 overload drill: {res['outcomes']}, totals {t}, "
                                  f"error types {kinds}, {drill_s:.1f} s")
+        if witness is not None:
+            witness["outcome"].observe_run(res)
         overload = {k: res[k] for k in ("offered", "offered_rps_achieved", "served_rps",
                                          "p50_ms", "p99_ms", "outcomes")}
         overload.update(seconds=drill_s, dispatches=_dispatches(drill))
@@ -2341,9 +2376,17 @@ def phase_server(dev, seed, preset=None, size=SERVER):
                 raise AssertionError("check 4: traffic did not finish")
             return disp.infer_many(cmp_frames, scene="a")
 
+        if witness is not None:
+            # The main dispatcher's own lock stays unwrapped: its worker
+            # waits on a Condition over it (rebuilding that Condition would
+            # strand the worker).  Its instruments are plain locks.
+            witness["lock"].attach_obs(disp.obs)
         post, counts = served(swap)
         if swap_err or len(swap_out) != size["swap_requests"]:
             raise AssertionError(f"check 4: {len(swap_out)} served, errors {swap_err}")
+        if witness is not None:
+            for _ in swap_out + post:  # infer_one / infer_many raise on an error
+                witness["outcome"].observe(None, "served")
         _finite_rows(swap_out + post, "check 4")
         _expect_launches(dev, counts, _dispatches(disp) - n0, "check 4")
         entry_a2 = manifest.resolve("a")
@@ -2606,10 +2649,37 @@ def _sequence_leg(dev, seed, size):
     return result, calls[0]
 
 
-def phase_fleet(dev, seed, preset=None, size=FLEET):
+def _witness_fleet(lock_witness, router, reps, injs):
+    """Attach phase 11's lock witness to a running fleet: the router's lock
+    and obs, each replica's registry (manifest, weight cache, host tier, a
+    prefetcher not yet started, its obs) and dispatcher instruments, and
+    the fault injectors.  The dispatchers' own locks stay unwrapped: their
+    workers wait on Conditions over them."""
+    lock_witness.attach(router, "_lock")
+    lock_witness.attach_obs(router.obs)
+    for rep in reps:
+        if rep.registry is not None:
+            lock_witness.attach_fleet(registry=rep.registry)
+        lock_witness.attach_obs(rep.dispatcher.obs)
+    for inj in injs.values():
+        lock_witness.attach(inj, "_lock")
+
+
+def _observe_request(outcome_witness, req, what):
+    """One finished request (a dispatcher's or the fleet router's) into the
+    outcome witness: (its error type or None, its outcome)."""
+    if not req.event.wait(120.0):
+        raise AssertionError(f"{what}: a request never finished")
+    outcome_witness.observe(None if req.error is None else type(req.error).__name__,
+                            req.outcome)
+
+
+def phase_fleet(dev, seed, preset=None, size=FLEET, witness=None):
     """Phase 9 (module docstring): the fleet tier on the card -- two
     replicas of phase 8's server behind a FleetRouter, host weight tiers,
-    the prefetcher, sessions and image-only requests."""
+    the prefetcher, sessions and image-only requests.  ``witness`` (phase
+    11's lock and outcome witnesses) rides the failover leg and the legs
+    after it."""
     import threading
 
     import torch
@@ -2775,13 +2845,17 @@ def phase_fleet(dev, seed, preset=None, size=FLEET):
         home = homes["a"][0]
         survivor = "r1" if home == "r0" else "r0"
         release = threading.Event()
+        if witness is not None:
+            _witness_fleet(witness["lock"], router, reps, injs)
         for inj in injs.values():
             inj.stall_once(release, match=lambda ctx, t=home: ctx["tag"] == t)
         fo_frame = frames(1)[0]
         t0 = time.perf_counter()
+        home_reqs = []
 
         def failover():
             req = router.submit(fo_frame, scene="a", deadline_ms=60_000.0)
+            home_reqs.append(req.ureq)  # the home replica's own request
             return req, req.get(90.0)
 
         (req, fo_out), _ = counted_leg(failover, "leg b (before release)")
@@ -2816,6 +2890,12 @@ def phase_fleet(dev, seed, preset=None, size=FLEET):
                 or books["served"] != books["offered"]:
             raise AssertionError(f"leg b: after release outcome {back.outcome} on "
                                  f"{back.replica}, books {books}")
+        if witness is not None:
+            # The fleet request, the survivor served directly, the request
+            # after the release, and the home replica's stalled request.
+            for r_ in (req, back) + tuple(u for u in home_reqs if u is not None):
+                _observe_request(witness["outcome"], r_, "leg b")
+            witness["outcome"].observe(None, "served")
         leg_s = time.perf_counter() - t_leg
         legs["failover"] = dict(seconds=leg_s, home=home, survivor=survivor,
                                 quarantine=quarantined[home],
@@ -3630,6 +3710,140 @@ def phase_parallel(dev, seed, workflow, fleet, size=PARALLEL):
                 seconds=time.perf_counter() - t_phase)
 
 
+def _lint_witnesses():
+    """Phase 11's runtime witnesses, attached by phases 8 and 9: a
+    LockWitness and an OutcomeWitness over the committed fault taxonomy."""
+    from esac_tpu_torch.lint.witness import LockWitness, OutcomeWitness
+
+    return {"lock": LockWitness(), "outcome": OutcomeWitness.from_repo(ROOT)}
+
+
+def phase_lint(dev, kernels, witness):
+    """Phase 11 (module docstring): the gradient witness on the card, the
+    kernels held against their plain versions on its scoring cases, and
+    the lock and outcome witnesses of phases 8 and 9 held against the
+    committed artifacts."""
+    import torch
+
+    from esac_tpu_torch.geometry.rotations import rodrigues
+    from esac_tpu_torch.lint import gradcheck
+    from esac_tpu_torch.lint.lockgraph import LOCK_GRAPH_NAME, load_graph
+    from esac_tpu_torch.ransac import fused_scoring as fs
+
+    t_phase = time.perf_counter()
+    corpus = gradcheck.load_corpus(ROOT / gradcheck.GRAD_CORPUS_NAME)
+    if corpus != gradcheck.default_corpus():
+        raise AssertionError("lint: the committed grad corpus differs from default_corpus()")
+    cases = sorted(corpus["cases"])
+
+    # (a) every witness on every case, the launches counted exactly.
+    record = {}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    verdicts = gradcheck.run_gradcheck(corpus, device=dev, record=record)
+    sync(dev)
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: w.launches for name, w in wrappers.items()}
+    want = {k: len(cases) * sum(per[k] for per in gradcheck.KERNEL_WITNESSES.values())
+            for k in KERNELS} if dev.type == "cuda" else dict.fromkeys(KERNELS, 0)
+    if launches != want:
+        raise AssertionError(f"lint: gradient witness launches {launches}, expected {want}")
+    bad = {name: [c for c, v in per.items() if not (v["outputs_finite"] and v["grads_finite"])]
+           for name, per in verdicts.items() if name != "clean"}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad or not verdicts["clean"]:
+        raise AssertionError(f"lint: non-finite outputs or gradients {bad}")
+    n_runs = sum(len(per) for name, per in verdicts.items() if name != "clean")
+
+    # The kernels against their plain versions on the witnesses' own
+    # inputs (NaN-aware, phase 3's tolerance), the select's backward run.
+    err = {"scores": 0.0, "select": 0.0}
+    winners, clear_winners = {}, 0
+    for case in cases:
+        out, _, arrays = record[("scoring_pallas_grad", case)]
+        rvecs, tvecs = gradcheck.hypothesis_poses(arrays["rvec"], arrays["tvec"],
+                                                  arrays["offs"])
+        args = (rodrigues(rvecs), tvecs, arrays["coords"][None], arrays["pixels"],
+                arrays["f"][None], arrays["c"], 10.0, 0.5)
+        with torch.no_grad():
+            p_scores = fs._scores_plain(*args)[0]
+            p_i, p_s, p_pose = fs._select_plain(*args)
+        k_scores = out["scores"].detach()
+        if not (torch.equal(torch.isnan(k_scores), torch.isnan(p_scores))
+                and torch.allclose(k_scores, p_scores, equal_nan=True, **SCORE_TOL)):
+            raise AssertionError(f"lint {case}: scoring kernel {k_scores.tolist()} vs plain "
+                                 f"{p_scores.tolist()}")
+        sel, sel_grads, _ = record[("scoring_fused_select_grad", case)]
+        k_i, k_s = int(sel["best_idx"]), sel["best_score"].detach()
+        # Phase 3's rule: the winners are equal where the plain top two are
+        # further apart than the tolerance; within it, the kernel's winner
+        # must be one of the plain near-maxima.
+        top2 = p_scores.nan_to_num(nan=float("inf")).topk(2).values
+        clear = bool(top2[0] - top2[1] > SCORE_TOL["atol"] + SCORE_TOL["rtol"] * abs(top2[0]))
+        near = bool(p_scores[k_i].nan_to_num(nan=float("inf"))
+                    >= top2[0] - SCORE_TOL["atol"] - SCORE_TOL["rtol"] * abs(top2[0]))
+        if (clear and k_i != int(p_i[0])) or not near:
+            raise AssertionError(f"lint {case}: select winner {k_i} != plain {int(p_i[0])} "
+                                 f"(plain scores {p_scores.tolist()})")
+        clear_winners += clear
+        if not (torch.allclose(k_s, p_s[0], equal_nan=True, **SCORE_TOL)
+                and bool(torch.isnan(k_s)) == bool(torch.isnan(p_s[0]))):
+            raise AssertionError(f"lint {case}: select score {float(k_s)} vs plain "
+                                 f"{float(p_s[0])}")
+        if not _same_or_both_nan(k_scores[k_i], k_s):
+            raise AssertionError(f"lint {case}: scores at the select winner != its best score")
+        if any(sel_grads[k] is None for k in ("coords", "rvecs", "tvecs")):
+            raise AssertionError(f"lint {case}: the select's backward reached no input "
+                                 f"({[k for k, g in sel_grads.items() if g is None]})")
+        both = torch.isfinite(k_scores) & torch.isfinite(p_scores)
+        err["scores"] = max(err["scores"], float((k_scores - p_scores)[both].abs().max()))
+        if bool(torch.isfinite(k_s)) and bool(torch.isfinite(p_s[0])):
+            err["select"] = max(err["select"], float((k_s - p_s[0]).abs()))
+        winners[case] = k_i
+    if winners["tie_scores"] != 0:
+        raise AssertionError(f"lint tie_scores: winner {winners['tie_scores']}, not the first")
+
+    # (b, c) the lock and outcome witnesses of phases 8 and 9.
+    graph = load_graph(ROOT / LOCK_GRAPH_NAME)
+    lock_violations = witness["lock"].violations(graph)
+    held = set(witness["lock"].hold_summary())
+    unknown = sorted(held - set(graph["nodes"]))
+    if lock_violations or unknown or not held:
+        raise AssertionError(f"lint lock witness: violations {lock_violations}, locks not in "
+                             f"the committed nodes {unknown}, {len(held)} locks observed")
+    outcome = witness["outcome"].snapshot()
+    if outcome["violations"] or not (outcome["observed"] or outcome["error_free_outcomes"]):
+        raise AssertionError(f"lint outcome witness: {outcome}")
+    edges = {f"{s}->{d}": n for (s, d), n in sorted(witness["lock"].edges().items())}
+    k = kernels["lint_corpus"]
+    result = dict(
+        verdicts={name: all(v["outputs_finite"] and v["grads_finite"] for v in per.values())
+                  for name, per in verdicts.items() if name != "clean"},
+        clean=verdicts["clean"], witnesses=len(verdicts) - 1, cases=len(cases), runs=n_runs,
+        launches=launches, sweep_ms=sweep_ms, winners=winners, clear_winners=clear_winners,
+        max_abs_err=err,
+        kernel_ms={"score": k["ms"]["score_kernel"], "select": k["ms"]["select_kernel"]},
+        wrapper_ms={"score": k["ms"]["score"], "select": k["ms"]["select"]},
+        shape={"P": k["P"], "H": k["H"], "N": k["N"]},
+        lock_edges=edges, locks_observed=len(held),
+        blocked_while_held=len(witness["lock"].blocked_events()),
+        outcomes=outcome["observed"], error_free_outcomes=outcome["error_free_outcomes"],
+        seconds=time.perf_counter() - t_phase)
+    log(f"[lint] gradient witness: {result['witnesses']} witnesses x {len(cases)} cases on "
+        f"{dev}, every output and gradient finite, in {sweep_ms:.1f} ms; launches "
+        f"{launches}; the kernels' scores equal the plain versions' on every case (max "
+        f"|err| {err['scores']:.3g} / {err['select']:.3g}), winners on the {clear_winners} "
+        f"cases with a clear winner and a plain near-maximum on the rest, tie_scores keeps "
+        f"index 0; the select's backward ran on every case")
+    log(f"[lint] lock witness: {len(held)} locks, edges {edges}, all inside the committed "
+        f"order; outcome witness: {outcome['observed']} + error-free "
+        f"{outcome['error_free_outcomes']}, all on committed edges")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3649,9 +3863,11 @@ def main(argv=None) -> int:
         serving = phase_serving(dev, args.seed)
         training = phase_training(dev, args.seed)
         workflow = phase_workflow(dev, args.seed)
-        server = phase_server(dev, args.seed)
-        fleet = phase_fleet(dev, args.seed)
+        witness = _lint_witnesses()
+        server = phase_server(dev, args.seed, witness=witness)
+        fleet = phase_fleet(dev, args.seed, witness=witness)
         parallel = phase_parallel(dev, args.seed, workflow, fleet)
+        lint = phase_lint(dev, kernels, witness)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -3682,6 +3898,7 @@ def main(argv=None) -> int:
             "server_launches": server["launches"][name],
             "fleet_launches": fleet["launches"][name],
             "sharded_launches": parallel["launches"][name],
+            "lint_launches": lint["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -3703,7 +3920,7 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
                                        workflow=workflow, server=server, fleet=fleet,
-                                       parallel=parallel),
+                                       parallel=parallel, lint=lint),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -3722,6 +3939,7 @@ def main(argv=None) -> int:
     print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
     print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))
     print(json.dumps({"parallel": {"device": name, "nvidia_smi": smi, **parallel}}))
+    print(json.dumps({"lint": {"device": name, "nvidia_smi": smi, **lint}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -56,8 +56,8 @@ def pose_errors(
     """(rotation error deg, translation error m) for scene->camera poses;
     the translation error is the distance between camera centers -R^T t."""
     rot_err = rot_error_deg(R, R_gt)
-    cam_center = -torch.einsum("...ij,...i->...j", R, t)
-    cam_center_gt = -torch.einsum("...ij,...i->...j", R_gt, t_gt)
+    cam_center = -hmm(t[..., None, :], R)[..., 0, :]
+    cam_center_gt = -hmm(t_gt[..., None, :], R_gt)[..., 0, :]
     return rot_err, safe_norm(cam_center - cam_center_gt)
 
 

@@ -27,7 +27,7 @@ def bearings(x2d: torch.Tensor, f: torch.Tensor, c: torch.Tensor) -> torch.Tenso
 
     The focal length is a physical intrinsic bounded away from 0, so it is
     not floored (as in the JAX package)."""
-    xy = (x2d - c) / f[..., None, None]
+    xy = (x2d - c) / f[..., None, None]  # torch-lint: disable=R14(focal bounded away from 0 by construction; a floor would break bit parity)
     rays = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
     return rays / safe_norm(rays)[..., None]
 
@@ -164,14 +164,16 @@ class _NormalEquations(torch.autograd.Function):
         u, v, ru, rv, w = ctx.saved_tensors
         sym = gA + gA.transpose(-1, -2)
         gg = gg[..., None, :]
-        du = w[..., None] * (torch.matmul(u, sym) + ru[..., None] * gg)
-        dv = w[..., None] * (torch.matmul(v, sym) + rv[..., None] * gg)
+        uS = torch.matmul(u, sym)  # torch-lint: disable=R4(training: no batch contract)
+        vS = torch.matmul(v, sym)  # torch-lint: disable=R4(training: no batch contract)
+        du = w[..., None] * (uS + ru[..., None] * gg)
+        dv = w[..., None] * (vS + rv[..., None] * gg)
         dru = w * (u * gg).sum(-1)
         drv = w * (v * gg).sum(-1)
         dw = None
         if ctx.needs_input_grad[4]:
-            dw = sum(((row @ gA) * row).sum(-1) + r * (row * gg).sum(-1)
-                     for row, r in ((u, ru), (v, rv)))
+            dw = sum(((row @ gA) * row).sum(-1)  # torch-lint: disable=R4(training: no batch contract)
+                     + r * (row * gg).sum(-1) for row, r in ((u, ru), (v, rv)))
         return du, dv, dru, drv, dw
 
 

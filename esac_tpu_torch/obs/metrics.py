@@ -492,7 +492,7 @@ class MetricsRegistry:
             if m is None:
                 m = self._metrics[name] = factory()
             elif m.kind != kind:
-                raise ValueError(
+                raise ValueError(  # torch-lint: disable=R16(obs imports nothing of serve, so no taxonomy here; registration misuse is a wiring-time programming error, never a servable fault)
                     f"metric {name!r} already registered as {m.kind}, "
                     f"requested {kind}"
                 )
@@ -528,7 +528,7 @@ class MetricsRegistry:
             if have is None:
                 self._metrics[instrument.name] = instrument
             elif have is not instrument:
-                raise ValueError(
+                raise ValueError(  # torch-lint: disable=R16(obs imports nothing of serve, so no taxonomy here; registration misuse is a wiring-time programming error, never a servable fault)
                     f"metric {instrument.name!r} already registered with a "
                     "different instrument object"
                 )

@@ -331,10 +331,16 @@ def _leaves(xs, needs):
 
 def _vjp(out, cot, leaves, needs):
     """Gradients of sum(out * cot) with respect to the ``leaves`` marked in
-    ``needs``; None for the rest (or where nothing reaches a leaf)."""
+    ``needs``; None for the rest (or where nothing reaches a leaf).  ``out``
+    and ``cot`` are a tensor each or tuples; an output no marked leaf
+    reaches (the select's pose row when only the coordinates require
+    grad) takes no part."""
+    outs, cots = (out, cot) if isinstance(out, tuple) else ((out,), (cot,))
+    pairs = [(o, g) for o, g in zip(outs, cots) if o.requires_grad and g is not None]
     wrt = [x for x, n in zip(leaves, needs) if n]
-    got = iter(torch.autograd.grad(out, wrt, cot, allow_unused=True) if wrt else ())
-    return [next(got) if n else None for n in needs]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                   allow_unused=True) if wrt and pairs else ())
+    return [next(got, None) if n else None for n in needs]
 
 
 class SoftInlierScores(torch.autograd.Function):

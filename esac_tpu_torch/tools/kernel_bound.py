@@ -149,7 +149,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available():  # torch-lint: disable=R6(exits 1: no fallback)
         print("kernel_bound: no CUDA GPU", file=sys.stderr)
         return 1
     built = build(ROOT / "esac_tpu_torch" / "build" / "kernel_bound")

@@ -93,7 +93,7 @@ def trace(log_dir: str):
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if torch.cuda.is_available():  # torch-lint: disable=R6(what to trace, not where to run)
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
