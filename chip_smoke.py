@@ -246,6 +246,29 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  member of fault_taxonomy.json, every (type, outcome) pair on
                  a committed edge.  Phase 3 holds both kernels at the corpus
                  shape (lint_corpus).
+12. bench     -- the port's bench (esac_tpu_torch.bench) on the card: the
+                 headline and streaming lines and every named mode of
+                 bench.py (serve, registry, routed, loadtest, scoring, chaos,
+                 obs, prefetch, fleet, hostpath, city, sessions) through
+                 esac_tpu_torch.bench.run, in process, at the modes' own
+                 shapes; only repeats, open-loop windows, request counts and
+                 city's retriever steps are cut (BENCH states each cut).
+                 Each mode prints exactly one JSON line with bench.py's
+                 metric name and platform "gpu", and writes its artifact (to
+                 a temporary directory); its launches are counted from 0:
+                 the scoring sweep launches the select kernel exactly once
+                 per fused_select call, warm-ups included (P = 16 frames,
+                 H = 64 / 256 / 1024, N = 4800: phase 3's bench_scoring_*
+                 shapes), every other mode scores with RansacConfig's
+                 default "errmap" and launches nothing.  The invariants
+                 the modes record hold: outcome accounting exact, no new
+                 batch signature on the hot path, routed K = M bit-equal to
+                 dense, the session lane's all-invalid prior bit-equal to
+                 the plain lane, the spans telescoping, the rollback and
+                 the breaker restore bit-identical.  The scoring sweep's
+                 winner agreement (fused_select against errmap: two float32
+                 formulas) is recorded, with any disagreeing frame's
+                 indices and score gap, not asserted.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -260,7 +283,8 @@ nothing).
 Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
 {"fleet": {...}}, one JSON line {"parallel": {...}}, one JSON line
-{"lint": {...}}, one JSON line {"kernels": [...]} and the nvidia-smi
+{"lint": {...}}, one JSON line {"bench": {...}}, one JSON line
+{"kernels": [...]} and the nvidia-smi
 name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -269,6 +293,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import pathlib
@@ -342,6 +367,11 @@ KERNEL_SHAPES = {  # label: (frames, maps, hypotheses, height, width)
     # 4 hypotheses over 16 cells (a 32 x 32 frame on the stride-8 grid),
     # below one 32-cell chunk of fused_scoring.cell_chunks.
     "lint_corpus": (1, 1, 4, 32, 32),
+    # Phase 12's scoring sweep: dsac_infer_frames over 16 frames of one map
+    # under "fused_select" at each n_hyps of bench.py's SCORING_SWEEP.
+    "bench_scoring_64": (16, 1, 64, 480, 640),
+    "bench_scoring_256": (16, 1, 256, 480, 640),
+    "bench_scoring_1024": (16, 1, 1024, 480, 640),
 }
 SERVING_SIZE = dict(height=480, width=640, arch="ref")
 # Phase 6: the Functions' shape (frames, maps, hypotheses, height, width)
@@ -366,6 +396,47 @@ WORKFLOW = dict(size="ref", height=480, width=640, scenes=7, frames=8, batch=2,
 # clamp binds only past 10 m.
 # The --backend cpp leg's launches: the hypothesis loop is C++ on the host.
 NO_LAUNCHES = {"soft_inlier_scores": 0, "soft_inlier_select": 0}
+# Phase 12: every bench mode at its own shapes; what is cut, against the
+# bench's defaults (esac_tpu_torch/bench/constants.py): repeats (headline
+# 20 -> 3, streaming 5 -> 1, scoring / serve / routed 5 -> 1, registry 7 ->
+# 2, obs 9 -> 1), open-loop windows (loadtest 2.5 s -> 0.25 s a point,
+# chaos 2.0 -> 0.25 s a phase, fleet 1.5 -> 0.2 s a point), request counts
+# (prefetch 240 -> 48 a leg, obs 24 -> 8 a pass, hostpath 300 -> 30,
+# sessions 16 -> 4 frames a session) and city's retriever fit (200 -> 100
+# steps).
+BENCH = {
+    "headline": dict(repeats=3),
+    "streaming": dict(repeats=1),
+    "scoring": dict(repeats=1),
+    "serve": dict(repeats=1),
+    "routed": dict(repeats=1),
+    "registry": dict(repeats=2),
+    "prefetch": dict(n_requests=48),
+    "loadtest": dict(seconds=0.25),
+    "chaos": dict(seconds=0.25),
+    "obs": dict(n_frames=8, repeats=1),
+    "fleet": dict(seconds=0.2),
+    "hostpath": dict(n_requests=30),
+    "city": dict(train_steps=100),
+    "sessions": dict(load_frames=4),
+}
+# bench.py's metric of each mode at these shapes.
+BENCH_METRICS = {
+    "headline": "pose_hypotheses_per_sec_per_chip",
+    "streaming": "streaming_hypotheses_per_sec_per_chip",
+    "serve": "serve_hyps_per_sec_frame_batch_64",
+    "registry": "registry_hot_swap_p50_ms",
+    "routed": "routed_serve_speedup_x_at_k_m4",
+    "loadtest": "serve_loadtest_knee_sustained_hyps_per_s",
+    "scoring": "scoring_fused_select_hyps_per_s_at_1024",
+    "chaos": "chaos_healthy_scene_goodput_retention",
+    "obs": "obs_tracing_overhead_pct",
+    "prefetch": "weight_tier_served_p99_cut_x",
+    "fleet": "fleet_healthy_goodput_retention_under_wedge",
+    "hostpath": "hostpath_per_replica_capacity_rps",
+    "city": "city_recall_at_2",
+    "sessions": "session_tracked_speedup_x",
+}
 
 
 def log(*parts) -> None:
@@ -3844,6 +3915,134 @@ def phase_lint(dev, kernels, witness):
     return result
 
 
+def _bench_invariants(mode, line) -> list[str]:
+    """The invariants a bench mode's line records, by the bench's own keys:
+    the names of those that do not hold (phase 12 fails on any)."""
+    checks = {
+        "headline": lambda: {"vs_baseline_measured": line["vs_baseline"] is not None},
+        "registry": lambda: {
+            "one_signature": line["registry"]["compiled_programs_after_all_swaps"] == 1},
+        "routed": lambda: {"k_eq_m_bitwise": line["k_eq_m_bitwise"]},
+        "loadtest": lambda: {"accounting_exact": all(
+            sum(p["outcomes"].values()) == p["offered"]
+            for leg in line["loadtest"]["legs"] for p in leg["points"])},
+        "chaos": lambda: {"accounting_exact": line["accounting_exact"],
+                          "post_rollback_bit_identical": line["post_rollback_bit_identical"],
+                          "no_new_signature": line["hot_path_recompiles"] == 0},
+        "obs": lambda: {"spans_telescope": line["span_sums_match_e2e"],
+                        "fleet_spans_telescope": bool(line["fleet_telescoping_ok"]),
+                        "no_new_signature": line["jit_cache_misses_added"] == 0
+                        and line["fleet_jit_cache_misses_added"] == 0,
+                        "snapshot_json_ok": line["snapshot_json_ok"]},
+        "prefetch": lambda: {"accounting_exact": line["accounting_exact"],
+                             "no_new_signature": line["recompiles"] == 0},
+        "fleet": lambda: {"accounting_exact": line["accounting_exact"],
+                          "no_new_signature": line["hot_path_recompiles"] == 0,
+                          "failover_bit_identical": line["failover_bit_identical"] is not False},
+        "hostpath": lambda: {"accounting_exact": line["accounting_exact"],
+                             "no_new_signature": line["hot_path_recompiles"] == 0},
+        "city": lambda: {"accounting_exact": line["accounting_exact"],
+                         "no_new_signature": line["hot_path_recompiles"] == 0,
+                         "breaker_bit_identical_restore": line["breaker_bit_identical_restore"]},
+        "sessions": lambda: {"accounting_exact": line["accounting_exact"],
+                             "no_new_signature": line["hot_path_recompiles"] == 0,
+                             "parity_bitwise_entry": line["parity_bitwise_entry"],
+                             "parity_bitwise_dispatcher": line["parity_bitwise_dispatcher"]},
+    }.get(mode, dict)()
+    return [name for name, ok in checks.items() if not ok]
+
+
+def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
+    """Phase 12 (module docstring): every bench mode through
+    ``esac_tpu_torch.bench.run`` on ``dev``, its one line checked, its
+    launches counted exactly, its invariants held."""
+    from esac_tpu_torch import bench
+    from esac_tpu_torch.bench import scaffold, scoring
+
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    results, launches, evidence = {}, dict.fromkeys(KERNELS, 0), []
+    saved_dir = scaffold.ARTIFACT_DIR
+    # What one full collection over the earlier phases' heap costs.
+    t0 = time.perf_counter()
+    gc.collect()
+    heap = dict(objects=len(gc.get_objects()), full_collection_ms=(time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as d:
+        scaffold.ARTIFACT_DIR = pathlib.Path(d)
+        try:
+            for mode, kwargs in size.items():
+                kwargs = dict(kwargs)
+                if mode == "scoring":
+                    kwargs["disagreements"] = evidence
+                for w in wrappers.values():
+                    w.launches = 0
+                # The earlier phases leave ~271k objects alive; a full
+                # collection over them holds the GIL 214-241 ms on the H100's
+                # host (the phase logs it), as long as a warm-up's 300 ms
+                # deadline or obs's 250 ms watchdog allow.  Frozen, they stay
+                # out of the collector's sight.  Per mode: run_open_loop,
+                # city, fleet and hostpath unfreeze the heap on their way out.
+                gc.collect()
+                gc.freeze()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    bench.run(None if mode == "headline" else mode, dev, **kwargs)
+                secs = time.perf_counter() - t0
+                got = {name: w.launches for name, w in wrappers.items()}
+                lines = buf.getvalue().strip().splitlines()
+                if len(lines) != 1:
+                    raise AssertionError(f"bench {mode}: {len(lines)} lines, not one")
+                line = json.loads(lines[0])
+                artifact = json.loads((pathlib.Path(d) / f"{mode}.json").read_text())
+                if line["metric"] != metrics[mode] or artifact["metric"] != metrics[mode]:
+                    raise AssertionError(f"bench {mode}: metric {line['metric']!r}, expected "
+                                         f"{metrics[mode]!r}")
+                want_platform = "gpu" if dev.type == "cuda" else "cpu"
+                if line["platform"] != want_platform or artifact["platform"] != want_platform:
+                    raise AssertionError(f"bench {mode}: platform {line['platform']!r}")
+                sweep = kwargs.get("n_hyps_sweep", scoring.SCORING_SWEEP)
+                want = dict.fromkeys(KERNELS, 0)
+                if mode == "scoring" and dev.type == "cuda":
+                    want["soft_inlier_select"] = scoring.select_launches(
+                        sweep, kwargs.get("repeats", scoring.SCORING_REPEATS))
+                if got != want:
+                    raise AssertionError(f"bench {mode}: kernel launches {got}, expected {want}")
+                bad = _bench_invariants(mode, line)
+                if bad:
+                    raise AssertionError(f"bench {mode}: invariants do not hold: {bad}")
+                for k in KERNELS:
+                    launches[k] += got[k]
+                results[mode] = dict(metric=line["metric"], value=line["value"],
+                                     unit=line["unit"], seconds=secs, launches=got,
+                                     vs_baseline=line.get("vs_baseline"))
+                if mode == "scoring":
+                    results[mode]["winner_bit_identical_all"] = line["winner_bit_identical_all"]
+                    results[mode]["winner_disagreements"] = evidence
+                    results[mode]["points"] = {
+                        p["n_hyps"]: {impl: v["dispatch_ms"] for impl, v in p["impls"].items()}
+                        for p in line["scoring"]["curve"]}
+                if mode == "streaming":
+                    results[mode]["max_memory_allocated_bytes"] = \
+                        artifact["max_memory_allocated_bytes"]
+                log(f"[bench] {mode}: {line['metric']} = {line['value']} {line['unit']} "
+                    f"({secs:.1f} s, launches {got})")
+        finally:
+            gc.unfreeze()
+            scaffold.ARTIFACT_DIR = saved_dir
+    if evidence:
+        flips = [r for r in evidence if r["errmap_best"] != r["fused_select_best"]]
+        gap = max(abs(r["errmap_score_at_errmap_best"] - r["fused_select_score"])
+                  for r in evidence)
+        log(f"[bench] scoring: fused_select differs from errmap on {len(evidence)} "
+            f"frame-points ({len(flips)} with another winning index, the rest in "
+            f"inlier_frac alone; max |score diff| {gap:.3g}); the list rides the bench line")
+    log(f"[bench] before phase 12 the heap held {heap['objects']} objects; one full "
+        f"collection over them took {heap['full_collection_ms']:.1f} ms")
+    return dict(modes=results, launches=launches, heap=heap,
+                seconds=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3868,6 +4067,7 @@ def main(argv=None) -> int:
         fleet = phase_fleet(dev, args.seed, witness=witness)
         parallel = phase_parallel(dev, args.seed, workflow, fleet)
         lint = phase_lint(dev, kernels, witness)
+        bench = phase_bench(dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -3899,6 +4099,7 @@ def main(argv=None) -> int:
             "fleet_launches": fleet["launches"][name],
             "sharded_launches": parallel["launches"][name],
             "lint_launches": lint["launches"][name],
+            "bench_launches": bench["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -3920,7 +4121,7 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
                                        workflow=workflow, server=server, fleet=fleet,
-                                       parallel=parallel, lint=lint),
+                                       parallel=parallel, lint=lint, bench=bench),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -3940,6 +4141,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))
     print(json.dumps({"parallel": {"device": name, "nvidia_smi": smi, **parallel}}))
     print(json.dumps({"lint": {"device": name, "nvidia_smi": smi, **lint}}))
+    print(json.dumps({"bench": {"device": name, "nvidia_smi": smi, **bench}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -190,3 +190,23 @@ def test_fleet_tier_typed_errors_keep_the_reference_wire_names():
     ours = _typed_errors([router, errors, session])
     ref = _typed_errors([j_router, j_errors, j_session])
     assert len(ours) == 5 and ours == ref
+
+
+def test_bench_entry_points_refuse_to_run_without_cuda(monkeypatch, capsys):
+    """The bench's measure functions, its pipeline and host-path profile run
+    on the card by default and raise without one; the two command lines
+    exit non-zero without a line."""
+    from esac_tpu_torch import bench
+    from esac_tpu_torch.bench import accuracy, pipeline
+    from esac_tpu_torch.tools import hostpath_profile
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [measure for measure, _ in bench.MODES.values()]
+    calls += [pipeline.measure_pipeline, hostpath_profile.profile]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for mode in [None, "streaming", *bench.MODES]:
+        assert bench.main([] if mode is None else [mode]) == 2
+    assert accuracy.main([]) == 2
+    assert capsys.readouterr().out == ""
