@@ -268,7 +268,31 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  the breaker restore bit-identical.  The scoring sweep's
                  winner agreement (fused_select against errmap: two float32
                  formulas) is recorded, with any disagreeing frame's
-                 indices and score gap, not asserted.
+                 indices and score gap, not asserted.  City runs at
+                 bench.py's 500 ms watchdog floor with its prefetchers
+                 cycling: every registry serve call is timed with a
+                 synchronize, and the phase fails if the watchdog abandons
+                 a dispatch, if any serve call takes longer than the
+                 drill's watchdog, or if a replica is quarantined by
+                 anything but the drill's last probe (its injected
+                 SceneLoadError);
+13. experiments -- the counterparts of experiments/profile_stages.py,
+                 experiments/generalization.py and tools/routed_train_bench.py
+                 (esac_tpu_torch.experiments.*, esac_tpu_torch.tools.
+                 routed_train_bench) at their scripts' shapes: the stage
+                 profile at config #1 (16 frames x 256 hypotheses x 4800
+                 cells, 20 repeats) under "errmap", "fused" and "pallas" (the
+                 scoring kernel: one launch per call of the stage, exactly),
+                 the three impls' scores agreeing within the kernels'
+                 tolerance; then the scoring kernel held against its plain
+                 version on the profile's own hypotheses (P = 16, H = 256,
+                 N = 4800; rtol 1e-5, atol 1e-3), timed beside it and its
+                 bound.  generalization at one round-1 row cut to fit (GEN:
+                 1024 frames, noaug, 3000 steps): finite loss, the median
+                 coordinate error under 20 cm.  routed_train_bench at M = 48
+                 on 2 gloo ranks sharing the card: finite losses, dense ==
+                 routed within rtol 1e-4 (else its ratio must not be quoted),
+                 the structural counts by the JAX script's formulas.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -284,7 +308,7 @@ Before the last line it prints one JSON line {"training": {...}}, one JSON
 line {"workflow": {...}}, one JSON line {"server": {...}}, one JSON line
 {"fleet": {...}}, one JSON line {"parallel": {...}}, one JSON line
 {"lint": {...}}, one JSON line {"bench": {...}}, one JSON line
-{"kernels": [...]} and the nvidia-smi
+{"experiments": {...}}, one JSON line {"kernels": [...]} and the nvidia-smi
 name/power-limit line; the last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3952,6 +3976,73 @@ def _bench_invariants(mode, line) -> list[str]:
     return [name for name, ok in checks.items() if not ok]
 
 
+@contextlib.contextmanager
+def _city_watch(dev):
+    """Phase 12's watch over the city drill: every registry serve call's
+    seconds (synchronized), each watchdog abandonment, each replica
+    quarantine with its error type."""
+    import torch
+
+    from esac_tpu_torch.fleet.router import FleetRouter
+    from esac_tpu_torch.registry.serving import SceneRegistry
+    from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher
+
+    rec = {"serve_s": [], "abandoned": 0, "quarantines": []}
+    infer_fn = SceneRegistry.infer_fn
+    abandon = MicroBatchDispatcher._abandon_inflight
+    note = FleetRouter._note_replica_fault
+
+    def timed_infer_fn(self):
+        fn = infer_fn(self)
+
+        def serve(batch, scene, route_k=None, n_hyps=None):
+            t0 = time.perf_counter()
+            out = fn(batch, scene, route_k, n_hyps)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            rec["serve_s"].append(time.perf_counter() - t0)
+            return out
+
+        serve._cache_size = fn._cache_size
+        return serve
+
+    def counted_abandon(self, infl, now):
+        rec["abandoned"] += 1
+        return abandon(self, infl, now)
+
+    def noted(self, name, err):
+        before = set(self.quarantined_replicas())
+        note(self, name, err)
+        if name in set(self.quarantined_replicas()) - before:
+            rec["quarantines"].append((name, type(err).__name__))
+
+    SceneRegistry.infer_fn = timed_infer_fn
+    MicroBatchDispatcher._abandon_inflight = counted_abandon
+    FleetRouter._note_replica_fault = noted
+    try:
+        yield rec
+    finally:
+        SceneRegistry.infer_fn = infer_fn
+        MicroBatchDispatcher._abandon_inflight = abandon
+        FleetRouter._note_replica_fault = note
+
+
+def _city_checks(rec, watchdog_ms) -> dict:
+    """Phase 12's city verdict: no abandoned dispatch, no serve call past
+    the watchdog, no replica quarantined but by the drill's last probe
+    (its injected SceneLoadError)."""
+    ms = sorted(1e3 * x for x in rec["serve_s"])
+    stray = [q for q in rec["quarantines"] if q[1] != "SceneLoadError"]
+    if rec["abandoned"] or not ms or ms[-1] >= watchdog_ms or stray:
+        raise AssertionError(f"bench city at the {watchdog_ms:.0f} ms watchdog: "
+                             f"{rec['abandoned']} dispatches abandoned, slowest serve call "
+                             f"{ms[-1] if ms else None} ms, quarantines {rec['quarantines']}")
+    return dict(watchdog_ms=watchdog_ms, serve_calls=len(ms), abandoned=rec["abandoned"],
+                quarantines=rec["quarantines"],
+                serve_ms={q: ms[min(len(ms) - 1, int(q * len(ms)))] for q in (0.5, 0.9, 0.99)}
+                | {"max": ms[-1]})
+
+
 def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
     """Phase 12 (module docstring): every bench mode through
     ``esac_tpu_torch.bench.run`` on ``dev``, its one line checked, its
@@ -3986,7 +4077,8 @@ def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
                 gc.freeze()
                 buf = io.StringIO()
                 t0 = time.perf_counter()
-                with contextlib.redirect_stdout(buf):
+                watch = _city_watch(dev) if mode == "city" else contextlib.nullcontext()
+                with watch as city_rec, contextlib.redirect_stdout(buf):
                     bench.run(None if mode == "headline" else mode, dev, **kwargs)
                 secs = time.perf_counter() - t0
                 got = {name: w.launches for name, w in wrappers.items()}
@@ -4025,6 +4117,15 @@ def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
                 if mode == "streaming":
                     results[mode]["max_memory_allocated_bytes"] = \
                         artifact["max_memory_allocated_bytes"]
+                if mode == "city":
+                    results[mode]["watch"] = _city_checks(city_rec,
+                                                          artifact["city"]["watchdog_ms"])
+                    w = results[mode]["watch"]
+                    log(f"[bench] city: {w['serve_calls']} serve calls at the "
+                        f"{w['watchdog_ms']:.0f} ms watchdog, p50 / p99 / max "
+                        f"{w['serve_ms'][0.5]:.1f} / {w['serve_ms'][0.99]:.1f} / "
+                        f"{w['serve_ms']['max']:.1f} ms; none abandoned; quarantines "
+                        f"{w['quarantines']} (the last probe's injected faults only)")
                 log(f"[bench] {mode}: {line['metric']} = {line['value']} {line['unit']} "
                     f"({secs:.1f} s, launches {got})")
         finally:
@@ -4040,6 +4141,124 @@ def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
     log(f"[bench] before phase 12 the heap held {heap['objects']} objects; one full "
         f"collection over them took {heap['full_collection_ms']:.1f} ms")
     return dict(modes=results, launches=launches, heap=heap,
+                seconds=time.perf_counter() - t_phase)
+
+
+# Phase 13: the three scripts at their own shapes; generalization at the
+# round-1 row frames=1024 noaug (experiments/generalization.py's record),
+# cut from 8000 steps to 3000.
+EXPERIMENTS = dict(profile=dict(batch=16, n_hyps=256, repeats=20),
+                   generalization=dict(n_frames=1024, augment=False, iters=3000),
+                   routed=dict(experts=48, ranks=None, repeats=3))
+ROUTED_LOSS_RTOL = 1e-4
+GEN_COORD_CM_MAX = 20.0  # an untrained expert sits near 100 cm
+
+
+def phase_experiments(dev, size=EXPERIMENTS):
+    """Phase 13 (module docstring): profile_stages, generalization and
+    routed_train_bench on ``dev``, launches counted from 0 around each,
+    the scoring kernel held against its plain version on the profile's
+    hypotheses."""
+    import torch
+
+    from esac_tpu_torch.experiments import generalization, profile_stages
+    from esac_tpu_torch.geometry.rotations import rodrigues
+    from esac_tpu_torch.ransac import fused_scoring as fs
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.tools import routed_train_bench
+
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    launches, out = {}, {}
+
+    def run(name, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        out[name] = {"seconds": time.perf_counter() - t0}
+        return res
+
+    # a. the stage profile: one launch per call of the "pallas" stage (the
+    # outputs' call, the warm call, the repeats), none elsewhere.
+    prof = size["profile"]
+    line, stages = run("profile_stages", lambda: profile_stages.profile(dev, **prof))
+    want = dict.fromkeys(KERNELS, 0)
+    if dev.type == "cuda":
+        want["soft_inlier_scores"] = 2 + prof["repeats"]
+    if launches["profile_stages"] != want:
+        raise AssertionError(f"profile_stages: launches {launches['profile_stages']}, "
+                             f"expected {want}")
+    impls = profile_stages.impls_for(dev)
+    for impl in impls:
+        if not torch.allclose(stages[f"scores_{impl}"], stages["scores_errmap"], **SCORE_TOL):
+            raise AssertionError(f"profile_stages: {impl} scores differ from errmap's")
+    keys = {"sample_solve_ms", "refine_ms", "full_ms", "score_ms"} | {
+        f"score_ms_{impl}" for impl in impls}
+    if not all(np.isfinite(line[k]) and line[k] > 0 for k in keys):
+        raise AssertionError(f"profile_stages: {line}")
+    out["profile_stages"]["line"] = line
+    # The kernel against its plain version on the profile's own hypotheses
+    # (after the count was read: these launches are comparisons).
+    cfg = RansacConfig()
+    with torch.inference_mode():
+        inp = profile_stages.frames(prof["batch"], dev)
+        args = (rodrigues(stages["rvecs"]), stages["tvecs"], inp["coords"], inp["pixels"],
+                inp["f"], inp["c"], cfg.tau, cfg.beta)
+        k_scores = fs.soft_inlier_scores_kernel(*args)
+        p_scores = fs._scores_plain(*args)
+        sync(dev)
+        err = float((k_scores - p_scores).abs().max())
+        if not torch.allclose(k_scores, p_scores, **SCORE_TOL):
+            raise AssertionError(f"profile_stages shape: scoring kernel vs plain max |err| {err}")
+        P, H, N = prof["batch"], prof["n_hyps"], inp["coords"].shape[1]
+        ms = {"score": time_ms(lambda: fs.soft_inlier_scores_kernel(*args), dev),
+              "score_plain": time_ms(lambda: fs._scores_plain(*args), dev, reps=5)}
+        ms.update(_launch_ms(dev, fs, args)[0])
+    out["profile_stages"]["kernel"] = dict(P=P, H=H, N=N, max_abs_err=err, ms=ms,
+                                           bound=_bound(P, H, N, 1, P * H * 4))
+    log(f"[experiments] profile_stages (P={P} H={H} N={N}, {prof['repeats']} repeats): "
+        f"sample+solve {line['sample_solve_ms']:.2f} ms, score "
+        + ", ".join(f"{impl} {line[f'score_ms_{impl}']:.3f}" for impl in impls)
+        + f" ms, refine {line['refine_ms']:.2f} ms, full {line['full_ms']:.2f} ms; launches "
+        f"{launches['profile_stages']}; scoring kernel vs plain max |err| {err:.3g} (rtol 1e-5, "
+        f"atol 1e-3), kernel {ms['score_kernel']:.4f} ms, wrapper {ms['score']:.4f} ms, plain "
+        f"{ms['score_plain']:.4f} ms, bound "
+        f"{out['profile_stages']['kernel']['bound']['bound_ms']:.4g} ms")
+
+    # b. generalization at one round-1 row.
+    g = size["generalization"]
+    gl = run("generalization", lambda: generalization.run(g["n_frames"], g["augment"],
+                                                          g["iters"], dev))
+    if launches["generalization"] != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"generalization: launches {launches['generalization']}")
+    if not (np.isfinite(gl["train_loss"]) and gl["coord_med_cm"] < GEN_COORD_CM_MAX):
+        raise AssertionError(f"generalization: {gl['line']}")
+    out["generalization"]["line"] = gl
+    log(f"[experiments] generalization: {gl['line']}")
+
+    # c. the routed-training bench at M = 48.
+    r = size["routed"]
+    doc = run("routed_train_bench", lambda: routed_train_bench.measure(dev, **r))
+    loss = doc["loss"]
+    if not (np.isfinite(loss["dense"]) and np.isfinite(loss["routed"])
+            and abs(loss["dense"] - loss["routed"]) <= ROUTED_LOSS_RTOL * abs(loss["dense"])):
+        raise AssertionError(f"routed_train_bench: losses {loss} differ: the ratio compares "
+                             "different work")
+    cells = (routed_train_bench.H // 8) * (routed_train_bench.W // 8)
+    if doc["structural"] != {
+            "expert_forwards_per_frame": {"dense": r["experts"],
+                                          "routed": doc["ranks"] * routed_train_bench.CAP},
+            "ep_collective_bytes_per_frame": {"dense": r["experts"] * cells * 3 * 4,
+                                              "routed": 4}}:
+        raise AssertionError(f"routed_train_bench: structural {doc['structural']}")
+    out["routed_train_bench"]["doc"] = doc
+    log(f"[experiments] routed_train_bench: {doc['config']}: dense {doc['dense_step_ms']:.1f} "
+        f"ms, routed {doc['routed_step_ms']:.1f} ms a step ({doc['routed_over_dense']:.3f}x), "
+        f"losses {loss}")
+    total = {k: sum(v[k] for v in launches.values()) for k in KERNELS}
+    return dict(runs=out, launches_by_run=launches, launches=total,
                 seconds=time.perf_counter() - t_phase)
 
 
@@ -4068,6 +4287,7 @@ def main(argv=None) -> int:
         parallel = phase_parallel(dev, args.seed, workflow, fleet)
         lint = phase_lint(dev, kernels, witness)
         bench = phase_bench(dev)
+        experiments = phase_experiments(dev)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1
@@ -4100,6 +4320,7 @@ def main(argv=None) -> int:
             "sharded_launches": parallel["launches"][name],
             "lint_launches": lint["launches"][name],
             "bench_launches": bench["launches"][name],
+            "experiments_launches": experiments["launches"][name],
             "shapes": {label: {"P": r["P"], "H": r["H"], "N": r["N"],
                                "kernel_ms": r["ms"][f"{short}_kernel"],
                                "wrapper_ms": r["ms"][short],
@@ -4115,13 +4336,21 @@ def main(argv=None) -> int:
         entry("soft_inlier_select", "select", "esac_tpu/ransac/pallas_scoring.py:301",
               "fused_select"),
     ]}
+    # Phase 13's hold of the scoring kernel at profile_stages' shape.
+    pk = experiments["runs"]["profile_stages"]["kernel"]
+    line["kernels"][0]["shapes"]["profile_stages"] = {
+        "P": pk["P"], "H": pk["H"], "N": pk["N"], "kernel_ms": pk["ms"]["score_kernel"],
+        "wrapper_ms": pk["ms"]["score"], "plain_ms": pk["ms"]["score_plain"],
+        "bound_ms": pk["bound"]["bound_ms"], "bound_by": pk["bound"]["bound_by"],
+        "max_abs_err": pk["max_abs_err"]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, training=training,
                                        workflow=workflow, server=server, fleet=fleet,
-                                       parallel=parallel, lint=lint, bench=bench),
+                                       parallel=parallel, lint=lint, bench=bench,
+                                       experiments=experiments),
                                   indent=1))
     runs = training["runs"]
     print(json.dumps({"training": {
@@ -4142,6 +4371,7 @@ def main(argv=None) -> int:
     print(json.dumps({"parallel": {"device": name, "nvidia_smi": smi, **parallel}}))
     print(json.dumps({"lint": {"device": name, "nvidia_smi": smi, **lint}}))
     print(json.dumps({"bench": {"device": name, "nvidia_smi": smi, **bench}}))
+    print(json.dumps({"experiments": {"device": name, "nvidia_smi": smi, **experiments}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -78,16 +78,8 @@ from esac_tpu_torch.serve.slo import (
 from esac_tpu_torch.utils.precision import resolve_device
 
 
-# bench.py floors this drill's watchdog at 500 ms.  In the port a dispatch is
-# a stream of eager ops that hands the GIL back and forth with the
-# prefetchers' weight loads (Python-bound module builds): on the H100 the
-# drill's serve calls reach a p99 of 694 ms and a max of 714 ms with the
-# prefetchers running, 171 / 198 ms without them
-# (esac_tpu_torch/tools/dispatch_convoy.py; PERF.md §6), and the 500 ms
-# floor quarantined both replicas though nothing was wedged.  The drill
-# injects no stall: the watchdog only has to stay out of its way, with an
-# order of magnitude of margin.
-WATCHDOG_FLOOR_MS = 5_000.0
+# bench.py's floor of the drill's watchdog.
+WATCHDOG_FLOOR_MS = 500.0
 
 
 def measure_city(train_steps: int = CITY_TRAIN_STEPS, device=None) -> dict:
@@ -490,9 +482,7 @@ def _measure_city_at(root, train_steps: int, dev) -> dict:
             "overlap.  winner_accuracy is a pose PROXY (winner-scene agreement): "
             "experts are random-init, so cross-scene soft-inlier scores are weak "
             "evidence -- recall@K is the retrieval metric.  Tiny scenes: latencies "
-            "measure scheduling, not throughput.  The watchdog floor is 5000 ms "
-            "(bench.py: 500): the prefetchers' weight loads stretch concurrent "
-            "dispatches past 500 ms in the port (GIL-bound eager ops)."
+            "measure scheduling, not throughput."
         ),
     }
 

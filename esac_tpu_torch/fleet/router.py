@@ -67,6 +67,7 @@ from esac_tpu_torch.retrieval.errors import (
     RetrievalCandidatesExhaustedError,
     RetrievalMissError,
 )
+from esac_tpu_torch.serve.gate import DISPATCH_GATE
 from esac_tpu_torch.serve.slo import (
     ConfigError,
     DeadlineExceededError,
@@ -603,7 +604,10 @@ RetrievalCandidatesExhaustedError` (failed — every candidate dispatch
         tok = front.offer()
         try:
             try:
-                decision = front.decide(frame)
+                # The retriever's forward is a device call: the process's
+                # prefetch work yields to it (serve/gate.py).
+                with DISPATCH_GATE.held():
+                    decision = front.decide(frame)
             except RetrievalMissError as e:
                 # Typed retrieval shed: no candidate was dispatchable.
                 tok.book("shed", e)

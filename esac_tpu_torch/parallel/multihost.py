@@ -31,6 +31,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from esac_tpu_torch.serve.gate import DISPATCH_GATE
 from esac_tpu_torch.utils.precision import resolve_device
 
 # How long a collective may wait for a rank before the group gives up.
@@ -163,7 +164,9 @@ def lead(fn, device):
     lock = threading.Lock()
 
     def call(*args, **kwargs):
-        with lock:
+        # A led call is a dispatch: the process's prefetch work yields to
+        # it (serve/gate.py; a dispatcher's call already holds the gate).
+        with DISPATCH_GATE.held(), lock:
             _broadcast((args, kwargs), dev)
             return fn(*args, **kwargs)
 

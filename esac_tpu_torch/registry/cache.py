@@ -63,6 +63,7 @@ from torch import nn
 
 from esac_tpu_torch.obs.trace import active_traces, current_issuer
 from esac_tpu_torch.registry.hosttier import decompress_tree
+from esac_tpu_torch.serve.gate import demand, owning
 from esac_tpu_torch.serve.slo import ConfigError
 from esac_tpu_torch.utils.precision import resolve_device
 
@@ -181,8 +182,12 @@ class DeviceWeightCache:
         if not owner:
             # Another worker owns this key's load: wait for its future.  The
             # tree is handed over directly (not re-looked-up), so a racing
-            # eviction cannot turn a completed load into a miss.
+            # eviction cannot turn a completed load into a miss.  A demand
+            # waiter marks the future demanded, so a prefetch owner stops
+            # yielding to the dispatch that waits here (serve/gate.py).
             t0 = time.perf_counter() if traces else None
+            if current_issuer() != "prefetch":
+                demand(fut)
             fut["event"].wait()
             for tr in traces:
                 tr.add_span(f"weight_fault:{key}", "weight_fault", t0, time.perf_counter(),
@@ -194,8 +199,9 @@ class DeviceWeightCache:
             return fut["result"]
         t0 = time.perf_counter() if traces else None
         try:
-            host, payload, from_tier, t_payload = self._read_host(entry)
-            tree = self._stage(entry, host)
+            with owning(fut):
+                host, payload, from_tier, t_payload = self._read_host(entry)
+                tree = self._stage(entry, host)
             if traces:
                 t_staged = time.perf_counter()
                 stages = [("read_host" if from_tier else "read_disk", t_payload - t0),

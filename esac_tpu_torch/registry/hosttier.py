@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from esac_tpu_torch.obs.trace import active_traces, current_issuer
+from esac_tpu_torch.serve.gate import demand, owning, yield_to_dispatches
 from esac_tpu_torch.serve.slo import ConfigError
 
 # Top-level subtrees of a load_scene_params tree that hold CNN weights --
@@ -154,6 +155,7 @@ def compress_tree(tree: Any, compression: str) -> dict:
         raise ConfigError(f"compression {compression!r} not in {COMPRESSION_CODECS}")
 
     def leaf_fn(leaf, lossy):
+        yield_to_dispatches()  # one prefetch step per leaf (serve/gate.py)
         return _compress_leaf(leaf, lossy, compression)
 
     if not isinstance(tree, dict):
@@ -170,7 +172,12 @@ def decompress_tree(payload: dict, device="cpu") -> Any:
     every time, on the CPU and on the card alike, which is what makes every
     tier transition serve identical weights."""
     dev = torch.device(device)
-    return _map_leaves(lambda leaf, _: _decompress_leaf(leaf, dev), payload["tree"], False)
+
+    def leaf_fn(leaf, _lossy):
+        yield_to_dispatches()
+        return _decompress_leaf(leaf, dev)
+
+    return _map_leaves(leaf_fn, payload["tree"], False)
 
 
 class HostWeightTier:
@@ -246,12 +253,15 @@ class HostWeightTier:
                 t = time.perf_counter()
                 for tr in traces:
                     tr.add_event("prefetch_coalesced", t, key=str(key))
+            if current_issuer() != "prefetch":
+                demand(fut)  # the owner stops yielding to this waiter
             fut["event"].wait()
             if fut["error"] is not None:
                 raise fut["error"]
             return fut["result"]
         try:
-            payload = producer()
+            with owning(fut):
+                payload = producer()
             with self._lock:
                 # Not cached when clear() bumped the generation or evict()
                 # purged this key mid-load (a breaker trip must never be

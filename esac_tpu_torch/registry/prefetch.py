@@ -22,7 +22,11 @@ weights are warm:
   ``HostWeightTier.get_or_load``), so a prefetch in flight coalesces with
   the demand fault it predicted onto one load, and a stalled or failing
   prefetch stalls THIS thread (and that scene's own demand), never the
-  dispatch path; a failure caches nothing.
+  dispatch path; a failure caches nothing.  In the port "never the
+  dispatch path" needs the dispatch gate (serve/gate.py): a dispatch of
+  eager ops hands the GIL over at every op, so each step of a cycle --
+  its start, each issue, each read, checksum, leaf copy or compression
+  -- first waits until no dispatch of the process is in flight.
 - **Health-aware targets.**  Scene -> entries resolution goes through
   ``SceneRegistry.prefetch_targets``: the active version plus any in-flight
   canary, minus breaker-tripped keys.
@@ -45,6 +49,7 @@ import threading
 import time
 
 from esac_tpu_torch.obs.trace import issuer_scope
+from esac_tpu_torch.serve.gate import DISPATCH_GATE, released_when, yield_to_dispatches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +141,8 @@ class WeightPrefetcher:
         # key -> last prefetch-issue time (the re-promotion cooldown).
         self._last_issue: dict = {}
         self._stop = False
+        # Set by close(): the cycle's gate waits stop (serve/gate.py).
+        self._closing = threading.Event()
         self._thread: threading.Thread | None = None
         self.prefetch_issued = collections.Counter()   # by tier
         self.prefetch_hits = 0
@@ -201,6 +208,8 @@ class WeightPrefetcher:
             self._stop = True
             self._wake.notify_all()
             thread = self._thread
+        self._closing.set()
+        DISPATCH_GATE.wake()
         # Join OUTSIDE the lock: the thread may be re-acquiring it.
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout_s)
@@ -253,8 +262,14 @@ class WeightPrefetcher:
         """One prefetch cycle: fold arrivals -> rank -> bounded device /
         host admissions -> credit accounting.  Loads and staging happen
         with NO prefetcher lock held, through the cache/tier per-key
-        futures.  Returns the cycle's decision record (issued keys per
-        tier) — the deterministic hook the tests drive."""
+        futures, and each step waits while a dispatch is in flight.
+        Returns the cycle's decision record (issued keys per tier) — the
+        deterministic hook the tests drive."""
+        with issuer_scope("prefetch"), released_when(self._closing.is_set):
+            yield_to_dispatches()
+            return self._cycle()
+
+    def _cycle(self) -> dict:
         now = self._clock()
         pol = self._policy
         cache = self._registry.cache
@@ -297,6 +312,7 @@ class WeightPrefetcher:
                         break
                     if entry.key in cache or entry.key in cooled:
                         continue
+                    yield_to_dispatches()
                     try:
                         cache.get(entry)  # rides the per-key load future
                         issued["device"].append(entry.key)
@@ -311,6 +327,7 @@ class WeightPrefetcher:
                             break
                         if entry.key in tier or entry.key in cache:
                             continue
+                        yield_to_dispatches()
                         try:
                             cache.preload_host(entry)
                             issued["host"].append(entry.key)

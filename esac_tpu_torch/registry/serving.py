@@ -92,6 +92,7 @@ from esac_tpu_torch.registry.manifest import (
     params_checksum,
 )
 from esac_tpu_torch.serve.batching import MIN_LANES, count_signatures
+from esac_tpu_torch.serve.gate import yield_to_dispatches
 from esac_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from esac_tpu_torch.utils.precision import resolve_device
 
@@ -234,6 +235,7 @@ def _read_with_retry(path, what, read_checkpoint, retries, backoff_s, rng=None):
     attempt = 0
     sleep_s = backoff_s
     while True:
+        yield_to_dispatches()  # one prefetch step per read (serve/gate.py)
         try:
             return read(path)
         except OSError as e:
@@ -260,6 +262,7 @@ def _verify_checksum(entry, role, params, config):
     want = entry.checksum_map.get(role)
     if want is None:
         return
+    yield_to_dispatches()
     got = params_checksum(params, config)
     if got != want:
         raise ChecksumMismatchError(
@@ -382,6 +385,7 @@ def stage_scene_params(host: dict, preset: ScenePreset, device=None) -> dict:
     Modules are in eval mode."""
     dev = resolve_device(device)
     dtype = _DTYPES[preset.compute_dtype]
+    yield_to_dispatches()  # building the modules is one prefetch step
     with torch.device("meta"):
         experts = nn.ModuleList(
             ExpertNet(stem_channels=preset.stem_channels, head_channels=preset.head_channels,
@@ -389,18 +393,25 @@ def stage_scene_params(host: dict, preset: ScenePreset, device=None) -> dict:
             for _ in range(preset.num_experts))
         gating = GatingNet(preset.num_experts, preset.gating_channels,
                            compute_dtype=dtype) if preset.gated else None
-    stacked = {k: v.to(dev) for k, v in host["expert"].items()}
+    # Each leaf's copy and each module's load_state_dict is one prefetch
+    # step (serve/gate.py).
+    def copy(v):
+        yield_to_dispatches()
+        return v.to(dev)
+
+    stacked = {k: copy(v) for k, v in host["expert"].items()}
     for m, net in enumerate(experts):
+        yield_to_dispatches()
         net.load_state_dict({k: v[m] for k, v in stacked.items()}, assign=True)
     if gating is not None:
-        gating.load_state_dict({k: v.to(dev) for k, v in host["gating"].items()},
+        gating.load_state_dict({k: copy(v) for k, v in host["gating"].items()},
                                assign=True)
     return {
         "expert": experts.eval(),
         "gating": None if gating is None else gating.eval(),
-        "centers": host["centers"].to(dev),
-        "f": host["f"].to(dev),
-        "c": host["c"].to(dev),
+        "centers": copy(host["centers"]),
+        "f": copy(host["f"]),
+        "c": copy(host["c"]),
     }
 
 

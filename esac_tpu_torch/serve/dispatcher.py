@@ -106,6 +106,7 @@ from esac_tpu_torch.serve.batching import (
     pick_bucket,
     plan_dispatches,
 )
+from esac_tpu_torch.serve.gate import DISPATCH_GATE, GateToken
 from esac_tpu_torch.serve.slo import (
     DeadlineExceededError,
     DispatcherClosedError,
@@ -181,13 +182,16 @@ class _Request:
 
 
 class _Inflight:
-    __slots__ = ("gen", "lane", "reqs", "t_start")
+    __slots__ = ("gen", "lane", "reqs", "t_start", "token")
 
     def __init__(self, gen, lane, reqs, t_start):
         self.gen = gen
         self.lane = lane
         self.reqs = reqs
         self.t_start = t_start
+        # The dispatch's hold of the process-wide gate (serve/gate.py);
+        # the watchdog retires it when it abandons the dispatch.
+        self.token = GateToken()
 
 
 class MicroBatchDispatcher:
@@ -646,13 +650,14 @@ class MicroBatchDispatcher:
         staged = stage(*bounds[0])
         for i in range(len(bounds)):
             tree, n_valid, bucket = staged
-            # the call returns once its work is queued (or, where the
-            # RANSAC path synchronizes inside, once that sync passed)
-            out = self._call(tree, scene, route_k, n_hyps)
-            done = self._record_done()
-            if i + 1 < len(bounds):
-                staged = stage(*bounds[i + 1])  # host staging overlaps compute
-            self._wait(done)
+            with DISPATCH_GATE.held():
+                # the call returns once its work is queued (or, where the
+                # RANSAC path synchronizes inside, once that sync passed)
+                out = self._call(tree, scene, route_k, n_hyps)
+                done = self._record_done()
+                if i + 1 < len(bounds):
+                    staged = stage(*bounds[i + 1])  # host staging overlaps compute
+                self._wait(done)
             t_done = self._clock()
             keys, host_leaves = self._to_host(out)
             with self._lock:
@@ -957,13 +962,16 @@ class MicroBatchDispatcher:
                 infl = _Inflight(gen, lane, reqs, self._clock())
                 self._inflight = infl
             try:
-                if traced:
-                    with trace_scope(traced):
+                # Prefetch work of the process yields while the gate is
+                # held (serve/gate.py).
+                with DISPATCH_GATE.held(infl.token):
+                    if traced:
+                        with trace_scope(traced):
+                            host, bucket, n_valid, t_done = self._dispatch(
+                                reqs, scene, eff_k, n_hyps)
+                    else:
                         host, bucket, n_valid, t_done = self._dispatch(
                             reqs, scene, eff_k, n_hyps)
-                else:
-                    host, bucket, n_valid, t_done = self._dispatch(
-                        reqs, scene, eff_k, n_hyps)
                 # Host-side result slicing: inside the try — a malformed
                 # result tree must fail THIS batch, never the worker — but
                 # OUTSIDE the lock: admission control's microsecond-
@@ -1118,6 +1126,7 @@ class MicroBatchDispatcher:
         poll = self._slo.watchdog_poll_ms / 1e3
         limit = self._slo.watchdog_ms / 1e3
         while True:
+            abandoned = None
             with self._work:
                 if self._closed and self._inflight is None \
                         and not self._n_pending:
@@ -1127,6 +1136,11 @@ class MicroBatchDispatcher:
                 infl = self._inflight
                 if infl is not None and now - infl.t_start > limit:
                     self._abandon_inflight(infl, now)
+                    abandoned = infl
+            if abandoned is not None:
+                # The wedged dispatch leaves the gate (outside the lock):
+                # one wedge must not starve every prefetcher for good.
+                DISPATCH_GATE.leave(abandoned.token)
             time.sleep(poll)
 
     def _expire_queued(self, now):

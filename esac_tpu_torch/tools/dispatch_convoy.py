@@ -8,7 +8,11 @@ every op boundary.  Two measurements, on the card unless ``--cpu``:
 - ``loader``: one scene's warm dispatch (the bench drills' toy preset,
   16 x 16, 2 experts, 4 hypotheses) timed 15 times while 0, 1 and 2
   background threads keep loading and staging another scene's weights
-  (``load_scene_params`` + ``stage_scene_params``, what a prefetch does);
+  (``load_scene_params`` + ``stage_scene_params``, what a prefetch does,
+  outside the dispatch gate), and while a real ``WeightPrefetcher`` cycles
+  the other scene (evicted before each cycle, so every cycle loads it),
+  through the dispatch gate (``prefetcher``) and with the gate's wait cut
+  to 0 (``prefetcher_ungated``);
 - ``city``: every registry serve call of the bench's city drill
   (``esac_tpu_torch.bench.city``, 100 retriever steps), timed with a
   synchronize, with the prefetchers running, without them, and with a
@@ -42,7 +46,8 @@ def _quantiles(times_s: list[float]) -> dict:
 
 
 def loader_convoy(dev, repeats: int = 15) -> dict:
-    """Warm dispatch times with 0, 1 and 2 weight-loading threads."""
+    """Warm dispatch times with 0, 1 and 2 weight-loading threads, and
+    with a prefetcher cycling through the gate and past it."""
     from esac_tpu_torch.bench.fixtures import (
         fence,
         image_frame,
@@ -52,11 +57,13 @@ def loader_convoy(dev, repeats: int = 15) -> dict:
     )
     from esac_tpu_torch.ransac.config import RansacConfig
     from esac_tpu_torch.registry.manifest import SceneManifest
+    from esac_tpu_torch.registry.prefetch import PrefetchPolicy
     from esac_tpu_torch.registry.serving import (
         SceneRegistry,
         load_scene_params,
         stage_scene_params,
     )
+    from esac_tpu_torch.serve import gate
 
     out = {}
     with scratch_dir("esac_convoy_") as root:
@@ -75,22 +82,47 @@ def loader_convoy(dev, repeats: int = 15) -> dict:
             while not stop.is_set():
                 stage_scene_params(load_scene_params(entry), preset, dev)
 
-        for loaders in (0, 1, 2):
-            threads = [threading.Thread(target=load_forever, daemon=True)
-                       for _ in range(loaders)]
+        reg = SceneRegistry(manifest, device=dev)
+        disp2 = reg.dispatcher(cfg, start_worker=False)
+        pf = reg.attach_prefetcher(PrefetchPolicy(interval_ms=1.0, device_scenes=2,
+                                                  repromote_cooldown_s=0.0), start=False)
+        disp2.infer_one(image_frame(0, 16), scene="s0")
+        cycles = {"n": 0}
+
+        def prefetch_forever():
+            while not stop.is_set():
+                reg.cache.evict(entry.key)
+                pf.observe("s1")
+                pf.run_cycle()
+                cycles["n"] += 1
+
+        def timed(target, copies, d):
+            threads = [threading.Thread(target=target, daemon=True) for _ in range(copies)]
             stop.clear()
             for t in threads:
                 t.start()
             times = []
             for k in range(repeats):
                 t0 = time.perf_counter()
-                disp.infer_one(image_frame(k, 16), scene="s0")
+                d.infer_one(image_frame(k, 16), scene="s0")
                 fence(dev)
                 times.append(time.perf_counter() - t0)
             stop.set()
             for t in threads:
                 t.join(60.0)
-            out[f"loaders_{loaders}"] = _quantiles(times)
+            return _quantiles(times)
+
+        for loaders in (0, 1, 2):
+            out[f"loaders_{loaders}"] = timed(load_forever, loaders, disp)
+        for name, wait_s in (("prefetcher", gate.MAX_YIELD_S), ("prefetcher_ungated", 0.0)):
+            saved, gate.MAX_YIELD_S = gate.MAX_YIELD_S, wait_s
+            cycles["n"] = 0
+            try:
+                out[name] = {**timed(prefetch_forever, 1, disp2), "cycles": cycles["n"]}
+            finally:
+                gate.MAX_YIELD_S = saved
+        pf.close()
+        disp2.close()
         disp.close()
     return out
 

@@ -1,128 +1,21 @@
-"""Every named mode of the port's bench (``esac_tpu_torch.bench``) runs on the
-CPU at the smallest arguments its function takes and prints exactly one
-JSON line; its payload's nested keys equal the committed artifact of the
-root ``bench.py`` for that mode (``.scoring_fused.json`` and the rest), its
-headline is ``bench.py``'s headline of the same payload, and it writes only
-its own artifact, into ``scaffold.ARTIFACT_DIR``.
+"""The port's bench modes city, hostpath, prefetch and registry on the CPU:
+each prints one JSON line whose payload has the keys of ``bench.py``'s
+committed artifact for that mode, and writes only its own artifact.
 
-Shapes are cut here only (the card runs them whole: ``chip_smoke.py`` phase
-12).  Keys whose children are data -- outcome counts, per-lane and per-scene
-maps, observed lock edges and fault pairs, obs snapshots -- are compared
-down to that key (``DATA_KEYED``)."""
-
-import contextlib
-import io
-import json
-import pathlib
+The case itself is tests/torch_bench_modes_cases.py's (one shared helper
+for the three files of mode groups)."""
 
 import pytest
-import torch
 
-import bench
-from esac_tpu_torch import bench as port
-from esac_tpu_torch.bench import obs, scaffold
-from esac_tpu_torch.serve.slo import SLOPolicy
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-ARTIFACTS = {
-    "scoring": ".scoring_fused.json", "serve": ".serve_amortization.json",
-    "loadtest": ".serve_loadtest.json", "routed": ".routed_serve.json",
-    "registry": ".registry_swap.json", "prefetch": ".weight_tiers.json",
-    "chaos": ".chaos_drill.json", "fleet": ".fleet_serve.json",
-    "city": ".city_retrieval.json", "sessions": ".session_serve.json",
-    "hostpath": ".hostpath.json", "obs": ".obs_overhead.json",
-}
-
-# The smallest arguments each measure function takes (repeats 1, windows of
-# ~0.2 s, tiny sweeps).  City's retriever needs a few dozen steps before an
-# easy query clears the calibrated confidence floor at all.
-SMALL = {
-    "scoring": dict(n_hyps_sweep=(16,), batch=2, repeats=1),
-    "serve": dict(n_frames=4, n_hyps=8, buckets=(1, 4), repeats=1),
-    "routed": dict(n_frames=2, n_hyps=4, repeats=1),
-    "registry": dict(n_scenes=2, repeats=1),
-    "prefetch": dict(n_scenes=4, n_requests=8),
-    "loadtest": dict(buckets=(2,), mults=(0.4, 2.0), seconds=0.2),
-    "chaos": dict(seconds=0.2),
-    "obs": dict(n_frames=3, n_hyps=8, repeats=1),
-    "hostpath": dict(n_requests=5),
-    "fleet": dict(seconds=0.1),
-    "city": dict(train_steps=40),
-    "sessions": dict(seq_frames=6, load_frames=2),
-}
-
-# Dicts keyed by what a run observed, not by the code.
-DATA_KEYED = {
-    "obs_snapshot", "outcomes", "error_types", "typed_errors", "observed",
-    "error_free_outcomes", "edges_observed", "hold_seconds", "blocked_while_held_worst",
-    "quarantined", "scene_homes", "health_events", "by_mix", "per_scene", "per_route_k",
-    "exemplar_slow_traces", "stage_table", "stage_p50_ms",
-}
-
-# (mode, key path) the port's payload has and the committed artifact lacks,
-# or the reverse, each with its reason.
-PAYLOAD_DIFFERENCES = {
-    ("prefetch", ".legs.host_tier_prefetch.prefetch_stats.feed_errors"):
-        "the committed .weight_tiers.json predates the JAX prefetcher's posterior "
-        "feed counters (esac_tpu/registry/prefetch.py:384-385): a JAX run today "
-        "records them too",
-    ("prefetch", ".legs.host_tier_prefetch.prefetch_stats.posterior_feeds"):
-        "as feed_errors",
-}
+import torch_bench_modes_cases as cases
 
 
-def key_paths(x, prefix=""):
-    out = set()
-    if isinstance(x, dict):
-        for k, v in x.items():
-            out.add(f"{prefix}.{k}")
-            if k not in DATA_KEYED:
-                out |= key_paths(v, f"{prefix}.{k}")
-    elif isinstance(x, list):
-        for v in x:
-            out |= key_paths(v, prefix + "[]")
-    return out
-
-
-def _dotfiles():
-    """The committed root artifacts of ``bench.py``: the port never writes them."""
-    return {n: (ROOT / n).stat().st_mtime_ns for n in ARTIFACTS.values()}
-
-
-@pytest.mark.parametrize("mode", sorted(ARTIFACTS))
+@pytest.mark.parametrize("mode", cases.GROUPS["test_torch_bench_modes.py"])
 def test_mode_runs_on_the_cpu_with_the_jax_payload_keys(mode, tmp_path, monkeypatch):
-    monkeypatch.setattr(scaffold, "ARTIFACT_DIR", tmp_path)
-    if mode == "obs":
-        # The failover drill's 250 ms watchdog (bench.py's) can fire on the
-        # drill's first, unstalled dispatch when a loaded CPU runs other test
-        # workers; the payload's keys do not depend on it.
-        monkeypatch.setattr(obs, "SLOPolicy", lambda **kw: SLOPolicy(
-            **{**kw, **({"watchdog_ms": 5_000.0} if "watchdog_ms" in kw else {})}))
-    before = _dotfiles()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        port.run(mode, torch.device("cpu"), **SMALL[mode])
-    lines = buf.getvalue().strip().splitlines()
-    assert len(lines) == 1
-    line = json.loads(lines[0])
-    ref = json.loads((ROOT / ARTIFACTS[mode]).read_text())
-    payload = line[mode]
+    cases.run_mode_case(mode, tmp_path, monkeypatch)
 
-    headline = getattr(bench, f"_{mode}_headline")(payload)
-    assert {k: line[k] for k in headline} == headline
-    assert line["unit"] == ref["unit"]
-    assert line["platform"] == "cpu" and line["device"]["name"] is None
-    assert "loadavg_prepause" in line["contention"]
 
-    ours, want = key_paths(payload), key_paths(ref[mode])
-    diff = {(mode, k) for k in ours ^ want}
-    assert diff == {d for d in PAYLOAD_DIFFERENCES if d[0] == mode}, sorted(diff)
-
-    assert sorted(p.name for p in tmp_path.iterdir()) == [f"{mode}.json"]
-    artifact = json.loads((tmp_path / f"{mode}.json").read_text())
-    assert artifact[mode] == payload and artifact["platform"] == "cpu"
-    assert {"recorded_at", "obs_provenance", "device"} <= set(artifact)
-    assert artifact["obs_provenance"]["has_fleet_snapshot"] == (
-        payload.get("obs_snapshot") is not None)
-    assert _dotfiles() == before
+def test_every_mode_runs_in_exactly_one_file():
+    modes = [m for group in cases.GROUPS.values() for m in group]
+    assert sorted(modes) == sorted(cases.ARTIFACTS)
+    assert all(len(group) == 4 for group in cases.GROUPS.values())
