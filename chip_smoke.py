@@ -290,9 +290,13 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  bound.  generalization at one round-1 row cut to fit (GEN:
                  1024 frames, noaug, 3000 steps): finite loss, the median
                  coordinate error under 20 cm.  routed_train_bench at M = 48
-                 on 2 gloo ranks sharing the card: finite losses, dense ==
-                 routed within rtol 1e-4 (else its ratio must not be quoted),
-                 the structural counts by the JAX script's formulas.
+                 on 2 gloo ranks sharing the card, its loss clamp raised to
+                 1e6 (at the script's 100 random weights saturate it: both
+                 losses read exactly 100, their equality says nothing and
+                 the backward is all zeros): neither loss at the clamp,
+                 finite losses, dense == routed within rtol 1e-4 (else its
+                 ratio must not be quoted), the structural counts by the JAX
+                 script's formulas.
 
 Around every call of an entry point in phases 4-6 the kernels' launch
 counters are set to 0 just before and read just after: a "fused_select"
@@ -4149,7 +4153,7 @@ def phase_bench(dev, size=BENCH, metrics=BENCH_METRICS):
 # cut from 8000 steps to 3000.
 EXPERIMENTS = dict(profile=dict(batch=16, n_hyps=256, repeats=20),
                    generalization=dict(n_frames=1024, augment=False, iters=3000),
-                   routed=dict(experts=48, ranks=None, repeats=3))
+                   routed=dict(experts=48, ranks=None, repeats=3, loss_clamp=1e6))
 ROUTED_LOSS_RTOL = 1e-4
 GEN_COORD_CM_MAX = 20.0  # an untrained expert sits near 100 cm
 
@@ -4242,6 +4246,9 @@ def phase_experiments(dev, size=EXPERIMENTS):
     r = size["routed"]
     doc = run("routed_train_bench", lambda: routed_train_bench.measure(dev, **r))
     loss = doc["loss"]
+    if any(doc["loss_saturated"].values()):
+        raise AssertionError(f"routed_train_bench: losses {loss} at the clamp "
+                             f"{doc['loss_clamp']}: dense == routed would say nothing")
     if not (np.isfinite(loss["dense"]) and np.isfinite(loss["routed"])
             and abs(loss["dense"] - loss["routed"]) <= ROUTED_LOSS_RTOL * abs(loss["dense"])):
         raise AssertionError(f"routed_train_bench: losses {loss} differ: the ratio compares "
@@ -4256,7 +4263,8 @@ def phase_experiments(dev, size=EXPERIMENTS):
     out["routed_train_bench"]["doc"] = doc
     log(f"[experiments] routed_train_bench: {doc['config']}: dense {doc['dense_step_ms']:.1f} "
         f"ms, routed {doc['routed_step_ms']:.1f} ms a step ({doc['routed_over_dense']:.3f}x), "
-        f"losses {loss}")
+        f"losses {loss} under the clamp {doc['loss_clamp']:g} (saturated: "
+        f"{doc['loss_saturated']})")
     total = {k: sum(v[k] for v in launches.values()) for k in KERNELS}
     return dict(runs=out, launches_by_run=launches, launches=total,
                 seconds=time.perf_counter() - t_phase)

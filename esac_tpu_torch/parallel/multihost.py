@@ -165,7 +165,8 @@ def lead(fn, device):
 
     def call(*args, **kwargs):
         # A led call is a dispatch: the process's prefetch work yields to
-        # it (serve/gate.py; a dispatcher's call already holds the gate).
+        # it (serve/gate.py).  Inside a dispatcher's call it rides that
+        # call's hold, which the SLO watchdog retires on a wedge.
         with DISPATCH_GATE.held(), lock:
             _broadcast((args, kwargs), dev)
             return fn(*args, **kwargs)

@@ -84,11 +84,13 @@ class _CompressedLeaf:
 def _map_leaves(fn, node, lossy: bool):
     """Structure-preserving map over a host param tree (dicts / lists /
     tuples of tensor or array leaves).  ``lossy`` rides down the recursion:
-    True only under the CNN subtrees."""
+    True only under the CNN subtrees.  Each leaf is one prefetch step
+    (serve/gate.py)."""
     if isinstance(node, dict):
         return {k: _map_leaves(fn, v, lossy) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return type(node)(_map_leaves(fn, v, lossy) for v in node)
+    yield_to_dispatches()
     return fn(node, lossy)
 
 
@@ -155,7 +157,6 @@ def compress_tree(tree: Any, compression: str) -> dict:
         raise ConfigError(f"compression {compression!r} not in {COMPRESSION_CODECS}")
 
     def leaf_fn(leaf, lossy):
-        yield_to_dispatches()  # one prefetch step per leaf (serve/gate.py)
         return _compress_leaf(leaf, lossy, compression)
 
     if not isinstance(tree, dict):
@@ -174,7 +175,6 @@ def decompress_tree(payload: dict, device="cpu") -> Any:
     dev = torch.device(device)
 
     def leaf_fn(leaf, _lossy):
-        yield_to_dispatches()
         return _decompress_leaf(leaf, dev)
 
     return _map_leaves(leaf_fn, payload["tree"], False)

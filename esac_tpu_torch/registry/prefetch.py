@@ -48,8 +48,7 @@ import math
 import threading
 import time
 
-from esac_tpu_torch.obs.trace import issuer_scope
-from esac_tpu_torch.serve.gate import DISPATCH_GATE, released_when, yield_to_dispatches
+from esac_tpu_torch.serve.gate import DISPATCH_GATE, prefetching, yield_to_dispatches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,7 +264,11 @@ class WeightPrefetcher:
         futures, and each step waits while a dispatch is in flight.
         Returns the cycle's decision record (issued keys per tier) — the
         deterministic hook the tests drive."""
-        with issuer_scope("prefetch"), released_when(self._closing.is_set):
+        # Issuer mark: every per-key load future this cycle creates records
+        # the prefetcher as its issuer, so a traced demand fault coalescing
+        # onto it is annotated "prefetch-coalesced" instead of reading as a
+        # plain disk wait.
+        with prefetching(self._closing):
             yield_to_dispatches()
             return self._cycle()
 
@@ -299,40 +302,35 @@ class WeightPrefetcher:
         # The scan itself is bounded, not just the issues: every scene
         # examined costs prefetch_targets (health + manifest locks).
         host_targets = ranked[:min(host_n, pol.host_scan_limit)]
-        # Issuer mark: every per-key load future this cycle
-        # creates records the prefetcher as its issuer, so a traced
-        # demand fault coalescing onto it is annotated
-        # "prefetch-coalesced" instead of reading as a plain disk wait.
-        with issuer_scope("prefetch"):
-            for scene in device_targets:
+        for scene in device_targets:
+            if len(issued["device"]) >= pol.max_device_per_cycle:
+                break
+            for entry in self._registry.prefetch_targets(scene):
                 if len(issued["device"]) >= pol.max_device_per_cycle:
                     break
+                if entry.key in cache or entry.key in cooled:
+                    continue
+                yield_to_dispatches()
+                try:
+                    cache.get(entry)  # rides the per-key load future
+                    issued["device"].append(entry.key)
+                except Exception:  # noqa: BLE001 — counted, never fatal
+                    failures += 1
+        if tier is not None:
+            for scene in host_targets:
+                if len(issued["host"]) >= pol.max_host_per_cycle:
+                    break
                 for entry in self._registry.prefetch_targets(scene):
-                    if len(issued["device"]) >= pol.max_device_per_cycle:
+                    if len(issued["host"]) >= pol.max_host_per_cycle:
                         break
-                    if entry.key in cache or entry.key in cooled:
+                    if entry.key in tier or entry.key in cache:
                         continue
                     yield_to_dispatches()
                     try:
-                        cache.get(entry)  # rides the per-key load future
-                        issued["device"].append(entry.key)
-                    except Exception:  # noqa: BLE001 — counted, never fatal
+                        cache.preload_host(entry)
+                        issued["host"].append(entry.key)
+                    except Exception:  # noqa: BLE001
                         failures += 1
-            if tier is not None:
-                for scene in host_targets:
-                    if len(issued["host"]) >= pol.max_host_per_cycle:
-                        break
-                    for entry in self._registry.prefetch_targets(scene):
-                        if len(issued["host"]) >= pol.max_host_per_cycle:
-                            break
-                        if entry.key in tier or entry.key in cache:
-                            continue
-                        yield_to_dispatches()
-                        try:
-                            cache.preload_host(entry)
-                            issued["host"].append(entry.key)
-                        except Exception:  # noqa: BLE001
-                            failures += 1
         # Wasted: credited keys that left BOTH tiers before any arrival
         # claimed them — the misprediction record.
         wasted = [

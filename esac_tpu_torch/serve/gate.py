@@ -12,14 +12,15 @@ one compiled call that gives up the GIL once and needs no gate.
   each dispatch, ``parallel.multihost.lead`` around each led call and the
   fleet router around the retrieval front's forward.  It counts holders;
   one process may run several replicas' dispatchers, and each prefetcher
-  yields to all of them.
+  yields to all of them.  A hold nested in one of the same thread (a led
+  call inside a dispatcher's call) adds nothing: one dispatch, one hold.
 - **Prefetch steps wait for it to open.**  :func:`yield_to_dispatches`
   marks the steps of a load (a checkpoint read, a checksum, a leaf's copy
   or compression, an expert's ``load_state_dict``, a prefetch cycle's
-  start).  In a thread whose issuer is "prefetch" (``obs.trace``) it waits
-  until no dispatch is in flight; anywhere else it returns at once, so a
-  demand load never waits.  A dispatch that starts during a step is
-  stretched by that one step.
+  start).  In a :func:`prefetching` scope (issuer "prefetch",
+  ``obs.trace``) it waits until no dispatch is in flight; anywhere else it
+  returns at once, so a demand load never waits.  A dispatch that starts
+  during a step is stretched by that one step.
 - **Coalesced demand never deadlocks.**  A dispatch that misses on a key
   whose load the prefetcher owns waits on that load's future.  It marks
   the future demanded (:func:`demand`), and a step of a load whose owned
@@ -27,9 +28,11 @@ one compiled call that gives up the GIL once and needs no gate.
 - **Wedges do not starve prefetch.**  :meth:`DispatchGate.leave` is
   idempotent and may come first: the SLO watchdog retires the token of a
   dispatch it abandons, and a later enter or leave of that token does
-  nothing.
-- **Closing never waits on the gate.**  A prefetcher's release check
-  (:func:`released_when`) stops its yields once it is closing.
+  nothing.  Since a dispatch holds once, retiring its token opens the gate
+  even while the wedged call sits inside a led call.
+- **Closing never waits on the gate.**  A :func:`prefetching` scope
+  carries its prefetcher's closing event, and its steps stop waiting once
+  the event is set.
 
 Under continuous traffic a prefetcher may wait up to :data:`MAX_YIELD_S` a
 step; a demand fault still loads on its own path, as it does in the JAX
@@ -43,12 +46,13 @@ import contextvars
 import threading
 import time
 
-from esac_tpu_torch.obs.trace import current_issuer
+from esac_tpu_torch.obs.trace import current_issuer, issuer_scope
 
-# The load futures this thread owns (innermost last) and the checks that
-# release its yields (a closing prefetcher).
+# This thread's hold, as (gate, token); the load futures it owns
+# (innermost last); the closing event of the prefetcher it runs for.
+_HOLD: contextvars.ContextVar = contextvars.ContextVar("esac_gate_hold", default=None)
 _OWNED: contextvars.ContextVar = contextvars.ContextVar("esac_gate_owned", default=())
-_RELEASE: contextvars.ContextVar = contextvars.ContextVar("esac_gate_release", default=())
+_CLOSING: contextvars.ContextVar = contextvars.ContextVar("esac_gate_closing", default=None)
 
 # The longest one prefetch step waits, in seconds (None: no limit).  A
 # dispatcher without an SLO watchdog never retires the hold of a dispatch
@@ -101,10 +105,18 @@ class DispatchGate:
 
     @contextlib.contextmanager
     def held(self, token: GateToken | None = None):
+        """Hold the gate for the scope, unless this thread already holds
+        it: then the scope rides the outer hold and its token."""
+        outer = _HOLD.get()
+        if outer is not None and outer[0] is self:
+            yield outer[1]
+            return
         token = self.enter(token)
+        ctx = _HOLD.set((self, token))
         try:
             yield token
         finally:
+            _HOLD.reset(ctx)
             self.leave(token)
 
     def in_flight(self) -> int:
@@ -112,7 +124,7 @@ class DispatchGate:
             return self._held
 
     def wake(self) -> None:
-        """Wake every waiter to re-read its release checks."""
+        """Wake every waiter to re-read its release check."""
         with self._cond:
             self._cond.notify_all()
 
@@ -153,14 +165,15 @@ def demand(fut: dict) -> None:
 
 
 @contextlib.contextmanager
-def released_when(check):
-    """Yields in this scope stop waiting once ``check()`` is true (a
-    closing prefetcher); wake the gate after ``check`` turns true."""
-    token = _RELEASE.set(_RELEASE.get() + (check,))
-    try:
-        yield
-    finally:
-        _RELEASE.reset(token)
+def prefetching(closing: threading.Event):
+    """Run a prefetch cycle: its loads' issuer is "prefetch", and its steps
+    stop waiting once ``closing`` is set (wake the gate after setting it)."""
+    with issuer_scope("prefetch"):
+        token = _CLOSING.set(closing)
+        try:
+            yield
+        finally:
+            _CLOSING.reset(token)
 
 
 def yield_to_dispatches() -> None:
@@ -168,9 +181,10 @@ def yield_to_dispatches() -> None:
     unless this thread's issuer is "prefetch"."""
     if current_issuer() != "prefetch":
         return
-    owned, checks = _OWNED.get(), _RELEASE.get()
+    owned, closing = _OWNED.get(), _CLOSING.get()
 
     def released():
-        return any(f.get("demanded") for f in owned) or any(c() for c in checks)
+        return ((closing is not None and closing.is_set())
+                or any(f.get("demanded") for f in owned))
 
     DISPATCH_GATE.wait_idle(released, MAX_YIELD_S)

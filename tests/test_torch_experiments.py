@@ -20,10 +20,11 @@ against the JAX functions the root scripts call, at small sizes.
   committed ``ckpts/ckpt_expert_synth0``, carried across by
   ``models.convert``) with injected sets matches the JAX evaluation's pose
   errors within 1e-3 rad and 1e-3 m; the printed line parses.
-- routed_train_bench at M = 8 over 2 gloo ranks: its dense and routed
-  losses agree (rtol 1e-4) and equal ``esac_tpu.parallel.
-  make_sharded_esac_loss`` on the same weights, and its ``structural``
-  block follows the JAX script's formulas.
+- routed_train_bench at M = 8 over 2 gloo ranks, the loss clamp raised so
+  that the loss does not saturate, JAX's sets injected: its dense and
+  routed losses agree (rtol 1e-4) and equal ``esac_tpu.parallel.
+  make_sharded_esac_loss`` on the same weights, its gradients follow
+  JAX's, and its ``structural`` block follows the JAX script's formulas.
 """
 
 import contextlib
@@ -49,6 +50,7 @@ from esac_tpu.parallel.mesh import make_mesh as j_make_mesh
 from esac_tpu.ransac import RansacConfig as JRansacConfig
 from esac_tpu.ransac import kernel as j_kernel
 from esac_tpu.ransac.refine import refine_soft_inliers as j_refine
+from esac_tpu.ransac.sampling import sample_correspondence_sets as j_sample_sets
 from esac_tpu.utils.checkpoint import load_checkpoint
 from esac_tpu_torch.experiments import generalization as gen
 from esac_tpu_torch.experiments import profile_stages as ps
@@ -261,32 +263,72 @@ def _numpy_params(module, rng, lead=()):
     return jax.tree.map(fill, jax.eval_shape(lambda: module.init(jax.random.key(0), img)))
 
 
+def _jax_sets(key, n_frames, experts, n_hyps, n_cells):
+    """The sets ``make_sharded_esac_loss`` draws from ``key`` on a mesh of
+    one data shard (both policies draw the same): per frame
+    split(fold_in(key, 0), B), then esac_train_loss's k_hyp, then one key
+    per global expert (score_cells 0: no subsample split)."""
+    frames = jax.random.split(jax.random.fold_in(key, 0), n_frames)
+    return np.stack([np.asarray(jax.vmap(
+        lambda k: j_sample_sets(k, n_hyps, n_cells))(
+            jax.random.split(jax.random.split(k)[0], experts))) for k in frames])
+
+
 def test_routed_train_bench_losses_agree_and_equal_jax(tmp_path):
     """One set of weights made with numpy, carried across; the sharpened
     gate must put its mass inside capacity 2 for the two policies to
     compute the same loss (the JAX script's condition), which the fixture
-    checks first."""
+    checks first.  The JAX script's clamp saturates at random weights
+    (both losses read exactly 100, and the gradients are zero), so both
+    sides run with the clamp at 1e6 and the test asserts the loss is under
+    it.  JAX's sharded loss draws its sets from its key; the same sets go
+    into the port through the bench's ``inputs``.
+
+    Both policies' losses are held to JAX's dense sharded loss at rtol 1e-4
+    (with the mass inside capacity JAX's routed loss is the dense one; its
+    compile is left out for time).  Every expert's gradients, of both
+    policies, are held against JAX's dense gradients (with the mass inside
+    capacity they are the routed ones too) within 1e-2 of each leaf's norm:
+    float32 P3P on random coordinates parts the packages by up to 3e-3
+    there, as much as it parts JAX's own two policies.  The gate's
+    gradients are held for the dense policy, elementwise at rtol 1e-3: at
+    the sharpened gate they are float32 rounding of a softmax at 1 - 1e-7
+    (the exact logit gradient is below the spacing of the loss), so only
+    the same order of sums reproduces them, and the routed policy sums per
+    rank: its gate gradients are held to the dense ones' direction (cosine
+    over 0.99 a leaf; 0.9994 or more measured), not their length."""
+    clamp = 1e6
     expert = JExpertNet(scene_center=(0.0, 0.0, 0.0), stem_channels=(8, 16, 32),
                         head_channels=32, head_depth=1, compute_dtype=jnp.float32)
     gating = JGatingNet(num_experts=M_SMALL, channels=(8, 16), compute_dtype=jnp.float32)
     rng = np.random.default_rng(0)
     e_params = _numpy_params(expert, rng, (M_SMALL,))
     g_params = _numpy_params(gating, rng)
-    state = {"experts": [load_expert(ExpertNet(stem_channels=(8, 16, 32), head_channels=32,
-                                               head_depth=1, compute_dtype=torch.float32),
-                                     jax.tree.map(lambda x: x[m], e_params)).state_dict()
-                         for m in range(M_SMALL)],
-             "gating": load_gating(GatingNet(M_SMALL, (8, 16), compute_dtype=torch.float32),
-                                   g_params).state_dict()}
-    weights = tmp_path / "weights.pt"
-    torch.save(state, weights)
-    doc = rtb.measure(CPU, ranks=RANKS, experts=M_SMALL, repeats=1, weights=str(weights))
+    cfg = JRansacConfig(n_hyps=16, refine_iters=2, train_refine_iters=1, loss_clamp=clamp)
+    key = jax.random.key(3)  # the bench's last timed step's seed at repeats=1
+    cells = (rtb.H // 8) * (rtb.W // 8)
+    idx = _jax_sets(key, rtb.B, M_SMALL, cfg.n_hyps, cells)
+
+    def t_expert():
+        return ExpertNet(stem_channels=(8, 16, 32), head_channels=32, head_depth=1,
+                         compute_dtype=torch.float32)
+
+    def t_gating():
+        return GatingNet(M_SMALL, (8, 16), compute_dtype=torch.float32)
+
+    state = {"experts": [load_expert(t_expert(), jax.tree.map(lambda x: x[m], e_params))
+                         .state_dict() for m in range(M_SMALL)],
+             "gating": load_gating(t_gating(), g_params).state_dict(),
+             "idx": torch.as_tensor(idx)}
+    torch.save(state, tmp_path / "inputs.pt")
+    doc = rtb.measure(CPU, ranks=RANKS, experts=M_SMALL, repeats=1, loss_clamp=clamp,
+                      inputs=str(tmp_path / "inputs.pt"), grads_out=str(tmp_path / "grads.pt"))
+    got_grads = torch.load(tmp_path / "grads.pt")
 
     g_sharp = jax.tree_util.tree_map_with_path(
         lambda path, x: x * rtb.GATE_SHARPEN if any(
             getattr(k, "key", None) == "Dense_1" for k in path) else x, g_params)
     mesh = j_make_mesh(n_data=1, n_expert=RANKS, devices=jax.devices()[:RANKS])
-    cfg = JRansacConfig(n_hyps=16, refine_iters=2, train_refine_iters=1)
     from esac_tpu.data import output_pixel_grid
 
     pixels = output_pixel_grid(rtb.H, rtb.W, 8)
@@ -296,22 +338,43 @@ def test_routed_train_bench_losses_agree_and_equal_jax(tmp_path):
     assert (mass[:, -rtb.CAP:].sum(-1) > 1 - 1e-6).all(), mass
     R = jnp.tile(j_rodrigues(jnp.asarray([0.1, -0.05, 0.02]))[None], (rtb.B, 1, 1))
     t = jnp.tile(jnp.asarray([-3.0, -2.0, 3.0]), (rtb.B, 1))
-    want = {}
     with mesh:
-        for name, capacity in (("dense", None), ("routed", rtb.CAP)):
-            loss = j_sharded_loss(mesh, expert, gating, e_params, g_sharp, pixels, f, c, cfg,
-                                  "dense", capacity=capacity)
-            want[name] = float(loss(e_params, g_sharp, images, R, t, jax.random.key(3)))
+        loss = j_sharded_loss(mesh, expert, gating, e_params, g_sharp, pixels, f, c, cfg, "dense")
+        want, (ge, gg) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))(
+            e_params, g_sharp, images, R, t, key)
 
     got = doc["loss"]
+    assert doc["loss_clamp"] == clamp
+    assert doc["loss_saturated"] == {"dense": False, "routed": False}
+    assert 0.0 < got["dense"] < clamp / 10, got  # far from the clamp, so it has gradients
     assert math.isclose(got["dense"], got["routed"], rel_tol=1e-4)
+    ref = {m: {k: v.detach().numpy() for k, v in load_expert(
+        t_expert(), jax.tree.map(lambda x: x[m], ge)).named_parameters()} for m in range(M_SMALL)}
+    # A leaf's floor is 1e-4 of its largest norm over the experts (the
+    # unselected experts' gradients carry a vanishing gate mass).
+    floor = {k: 1e-4 * max(np.linalg.norm(ref[m][k]) for m in ref) for k in ref[0]}
+    assert all(v > 0 for v in floor.values()), floor
     for name in ("dense", "routed"):
-        assert math.isclose(got[name], want[name], rel_tol=1e-4), (got, want)
-    cells = (rtb.H // 8) * (rtb.W // 8)
+        assert math.isclose(got[name], float(want), rel_tol=1e-4), (got, want)
+        assert sorted(got_grads[name]["experts"]) == list(range(M_SMALL))
+        for m, leaves in ref.items():
+            have = got_grads[name]["experts"][m]
+            assert set(have) == set(leaves), m
+            for k, r in leaves.items():
+                err = np.linalg.norm(have[k].numpy() - r)
+                assert err <= 1e-2 * np.linalg.norm(r) + floor[k], (name, m, k, err)
+    gate = {k: v.detach().numpy() for k, v in load_gating(t_gating(), gg).named_parameters()}
+    for k, r in gate.items():
+        np.testing.assert_allclose(got_grads["dense"]["gating"][k].numpy(), r, rtol=1e-3,
+                                   atol=1e-4 * float(np.abs(r).max()), err_msg=k)
+        routed = got_grads["routed"]["gating"][k].numpy().ravel()
+        cos = routed @ r.ravel() / (np.linalg.norm(routed) * np.linalg.norm(r) + 1e-30)
+        assert cos > 0.99, (k, cos)
+    assert {"config", "dense_step_ms", "routed_step_ms", "routed_over_dense", "loss",
+            "structural", "note", "loss_clamp", "loss_saturated", "ranks", "platform",
+            "device"} == set(doc)
     assert doc["structural"] == {
         "expert_forwards_per_frame": {"dense": M_SMALL, "routed": RANKS * rtb.CAP},
         "ep_collective_bytes_per_frame": {"dense": M_SMALL * cells * 3 * 4, "routed": 4}}
-    assert {"config", "dense_step_ms", "routed_step_ms", "routed_over_dense", "loss",
-            "structural", "note", "ranks", "platform", "device"} == set(doc)
     assert doc["ranks"] == RANKS and doc["platform"] == "cpu"
     assert doc["routed_over_dense"] == doc["routed_step_ms"] / doc["dense_step_ms"]

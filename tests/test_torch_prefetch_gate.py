@@ -1,7 +1,8 @@
 """The dispatch gate (esac_tpu_torch/serve/gate.py): prefetch steps wait
 while a dispatch of the process is in flight, a demand load never waits, a
 demand that joins a prefetch's load releases it, an abandoned dispatch
-leaves the gate, a closing prefetcher stops waiting, and what a prefetch
+leaves the gate (a led one too: a led call inside a dispatch adds no hold
+of its own), a closing prefetcher stops waiting, and what a prefetch
 stages is what a demand load stages.
 
 Every case is ordered by events and joins, never by a measured time: the
@@ -247,6 +248,42 @@ def test_an_abandoned_dispatch_leaves_the_gate(fresh_gate):
         # The wedged call is still running; a prefetch step passes.
         assert not wedge.is_set()
         fresh_gate.wait_idle()
+    finally:
+        wedge.set()
+        disp.close()
+    assert fresh_gate.in_flight() == 0
+
+
+def test_an_abandoned_led_dispatch_leaves_the_gate(fresh_gate, monkeypatch):
+    """A dispatcher over a led function (``parallel.multihost.lead``): the
+    led call rides the dispatch's hold, so the watchdog's abandoning the
+    wedged dispatch -- and then the replacement worker's, queued on the led
+    call's lock -- opens the gate while the wedged call still runs."""
+    monkeypatch.setattr(multihost, "_broadcast", lambda obj, device: obj)  # one rank
+    wedge, entered = threading.Event(), threading.Event()
+
+    def infer(batch, scene):
+        entered.set()
+        wedge.wait()  # released by the test's finally, after the checks
+        return {"x": torch.as_tensor(batch["seed"])}
+
+    disp = MicroBatchDispatcher(multihost.lead(infer, CPU), CFG,
+                                slo=SLOPolicy(watchdog_ms=200.0, watchdog_poll_ms=5.0),
+                                device=CPU)
+    try:
+        req = disp.submit({"seed": np.int64(1)}, scene="s0")
+        assert entered.wait(JOIN_S)
+        assert fresh_gate.in_flight() == 1
+        with pytest.raises(DispatchStalledError):
+            req.get(JOIN_S)
+        # The wedge quarantined s0's lane; s1's request goes to the
+        # replacement worker.
+        queued = disp.submit({"seed": np.int64(2)}, scene="s1")
+        with pytest.raises(DispatchStalledError):
+            queued.get(JOIN_S)
+        _until(lambda: fresh_gate.in_flight() == 0, "both abandoned dispatches leave")
+        assert not wedge.is_set()
+        assert fresh_gate.wait_idle(timeout_s=0.0)  # a prefetch step passes at once
     finally:
         wedge.set()
         disp.close()
