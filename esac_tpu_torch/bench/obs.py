@@ -24,7 +24,7 @@ from esac_tpu_torch.bench.constants import C, OBS_FRAMES, OBS_HYPS, OBS_REPEATS
 from esac_tpu_torch.bench.fixtures import join_threads_started_since, med
 from esac_tpu_torch.bench.serve import correspondence_requests
 from esac_tpu_torch.fleet.router import FleetPolicy, FleetRouter, Replica
-from esac_tpu_torch.obs import STAGES
+from esac_tpu_torch.obs import STAGES, top_level
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.serve.dispatcher import MicroBatchDispatcher, make_dsac_serve_fn
 from esac_tpu_torch.serve.slo import FaultInjector, SLOPolicy
@@ -93,8 +93,8 @@ def measure_obs(n_frames: int = OBS_FRAMES, n_hyps: int = OBS_HYPS,
     reqs = [dispw.submit(fr) for fr in frames]
     for r in reqs:
         r.get(300.0)
-    residuals = [abs(math.fsum(r.spans.durations().values()) - (r.t_done - r.t_submit))
-                 for r in reqs]
+    residuals = [abs(math.fsum(top_level(r.spans.durations()).values())
+                     - (r.t_done - r.t_submit)) for r in reqs]
     stage_hist = dispw.obs.get("serve_stage_seconds")
     stage_p50_ms = {stage: round(stage_hist.quantile(0.5, stage=stage) * 1e3, 3)
                     for stage in list(STAGES[1:]) + ["served"]

@@ -17,16 +17,24 @@ from esac_tpu_torch.obs.metrics import (
 from esac_tpu_torch.obs.rules import Alert, RuleEngine, default_rules
 from esac_tpu_torch.obs.timeline import Timeline
 from esac_tpu_torch.obs.trace import (
+    SERVE_STAGES,
     STAGES,
     Span,
     SpanChain,
+    StageClock,
     TERMINAL_STAGES,
     Trace,
     TraceStore,
     active_traces,
+    close_range,
     current_issuer,
+    host_range,
     issuer_scope,
     new_trace_id,
+    open_range,
+    serve_stage,
+    stage_scope,
+    top_level,
     trace_scope,
 )
 
@@ -38,9 +46,11 @@ __all__ = [
     "HistogramVec",
     "MetricsRegistry",
     "RuleEngine",
+    "SERVE_STAGES",
     "Span",
     "SpanChain",
     "STAGES",
+    "StageClock",
     "StreamingHistogram",
     "TERMINAL_STAGES",
     "Timeline",
@@ -48,12 +58,18 @@ __all__ = [
     "TraceStore",
     "active_traces",
     "current_issuer",
+    "close_range",
     "default_rules",
+    "host_range",
     "issuer_scope",
     "jsonable",
     "new_trace_id",
+    "open_range",
     "provenance",
     "render_prometheus",
     "render_traces",
+    "serve_stage",
+    "stage_scope",
+    "top_level",
     "trace_scope",
 ]

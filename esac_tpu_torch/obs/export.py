@@ -147,7 +147,9 @@ def render_traces(snapshot: dict, k: int = 5) -> str:
     """Human rendering of the K slowest sampled traces carried by a
     snapshot's ``traces`` collector (``python -m esac_tpu_torch.obs
     --traces``): per trace the root stage walk (the fleet telescoping
-    partition) and the child span tree with per-stage durations."""
+    partition), each dispatch's nested bucket-call stages under
+    ``dispatched`` (host, and the card's time beside them), and the child
+    span tree with per-stage durations."""
     block = snapshot.get("collectors", {}).get("traces")
     if not isinstance(block, dict) or not block.get("slowest"):
         return ("no sampled traces in this snapshot (enable "
@@ -167,8 +169,14 @@ def render_traces(snapshot: dict, k: int = 5) -> str:
             f"(1-in-{t.get('sampled_1_in', 1)} sampled, "
             f"residual {t.get('residual_s', 0):.2e}s)"
         )
+        nested = dict(t.get("nested_stages", []))
         for stage, dt in t.get("root_stages", []):
             out.append(f"  |- {stage:<18} {ms(dt)}")
+            for key in [k for k in nested if k.startswith(stage + ".")]:
+                sub = key[len(stage) + 1:]
+                gpu = nested.get("gpu." + sub)
+                out.append(f"  |    .  {sub:<13} {ms(nested.pop(key))}"
+                           + (f"  (gpu {ms(gpu)})" if gpu is not None else ""))
         spans = t.get("spans", [])
         by_parent: dict = {}
         for s in spans:

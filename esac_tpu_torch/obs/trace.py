@@ -25,6 +25,38 @@ is exactly last-stamp minus first-stamp, the request's end-to-end latency
 device for each attempt; :meth:`SpanChain.durations` aggregates by stage
 name.
 
+Inside ``dispatched`` a traced dispatch nests the stages of the bucket
+call (:data:`SERVE_STAGES`), each ending where the code reaches its
+boundary (:func:`serve_stage`):
+
+  ``resolve``    -- the registry's serve up to the bucket function's body
+                   (probe drain, manifest resolve, ``_fn_for``, the weight
+                   cache)
+  ``cnn``        -- the images to float32 and the expert and gating CNNs
+  ``sampling``   -- the per-frame generators (the seed readback, which
+                   waits for the CNNs on the card) and the correspondence
+                   sets
+  ``hypotheses`` -- gather, P3P and polish of every hypothesis
+  ``scoring``    -- the cell subsample, score and select, the prior slot,
+                   the argmax over experts and the winner's takes
+  ``refine``     -- IRLS refinement of the winner
+  ``outputs``    -- the output dict and the health probe, up to the
+                   ``dispatched`` stamp
+
+They land on the chain as nested entries: ``dispatched.<stage>`` (host
+seconds, the dispatcher's clock) and, on the card, ``gpu.<stage>`` (the
+device's seconds from reaching one boundary to reaching the next, idle
+gaps inside the stage included; CUDA events read after the
+synchronization the dispatch already performs).  The nested host stages
+telescope to ``dispatched`` on their own; :meth:`SpanChain.segments`,
+:meth:`~SpanChain.total` and :meth:`~SpanChain.residual` stay over the
+top-level stages, and :meth:`~SpanChain.durations` reports both.  The same
+boundaries open and close host-only profiler ranges ``esac.<stage>`` (not
+user annotations, so the device trace gains no event), and the
+dispatcher's waits get their own (``esac.wait_work``, ``esac.hold``,
+``esac.staging``, ``esac.to_host``): a ``torch.profiler`` trace names each
+idle gap of the card by the stage the host was in.
+
 Chains are written by one thread at a time (the submitter, then the worker
 that owns the batch, then whoever resolves the request under the
 dispatcher lock), so they carry no lock of their own -- with one
@@ -60,18 +92,32 @@ STAGES = ("admitted", "coalesced", "staged", "dispatched", "device",
           "sliced")
 # Terminal stamps reuse the outcome-class names of the SLO accounting.
 TERMINAL_STAGES = ("served", "degraded", "shed", "expired", "failed")
+# The stages of a traced bucket call, nested inside ``dispatched``, in order.
+SERVE_STAGES = ("resolve", "cnn", "sampling", "hypotheses", "scoring",
+                "refine", "outputs")
 
 
 class SpanChain:
-    """Append-only (stage, t) stamps for one request; see module doc."""
+    """Append-only (stage, t) stamps for one request, plus the nested
+    stages of its bucket calls; see module doc."""
 
-    __slots__ = ("stamps",)
+    __slots__ = ("stamps", "nested")
 
     def __init__(self, stage: str, t: float):
         self.stamps: list[tuple[str, float]] = [(stage, t)]
+        # (stamps written before it, "dispatched.<stage>" | "gpu.<stage>", dt)
+        self.nested: list[tuple[int, str, float]] | None = None
 
     def stamp(self, stage: str, t: float) -> None:
         self.stamps.append((stage, t))
+
+    def nest(self, stages) -> None:
+        """Add nested (key, dt) entries; like a stamp, an entry written
+        after the first terminal stamp is inert."""
+        if self.nested is None:
+            self.nested = []
+        at = len(self.stamps)
+        self.nested.extend((at, key, dt) for key, dt in stages)
 
     def _effective(self) -> list[tuple[str, float]]:
         """The chain up to (and including) its FIRST terminal stamp —
@@ -98,19 +144,42 @@ class SpanChain:
             out.append((stage, t1 - t0))
         return out
 
+    def nested_durations(self) -> dict[str, float]:
+        """The nested stages (``dispatched.<stage>``, ``gpu.<stage>``)
+        aggregated by key, truncated like the stamps."""
+        agg: dict[str, float] = {}
+        if self.nested:
+            eff = self._effective()
+            # Entries written before the terminal stamp (if any) count.
+            limit = len(eff) - (eff[-1][0] in TERMINAL_STAGES)
+            for at, key, dt in self.nested:
+                if at <= limit:
+                    agg[key] = agg.get(key, 0.0) + dt
+        return agg
+
     def durations(self) -> dict[str, float]:
-        """Per-stage durations aggregated by stage name.  Their
-        ``math.fsum`` equals :meth:`total` (telescoping — the span
-        integrity pin)."""
+        """Per-stage durations aggregated by stage name, then the nested
+        stages (:meth:`nested_durations`).  The ``math.fsum`` of the
+        top-level ones equals :meth:`total` (telescoping — the span
+        integrity pin); the ``dispatched.<stage>`` ones sum to
+        ``dispatched``."""
         agg: dict[str, float] = {}
         for stage, dt in self.segments():
             agg[stage] = agg.get(stage, 0.0) + dt
+        if self.nested:
+            agg.update(self.nested_durations())
         return agg
 
     def residual(self) -> float:
-        """|fsum(durations) - total| — 0 up to float summation noise;
-        the span-integrity check."""
-        return abs(math.fsum(self.durations().values()) - self.total())
+        """|fsum(top-level durations) - total| — 0 up to float summation
+        noise; the span-integrity check."""
+        return abs(math.fsum(dt for _, dt in self.segments()) - self.total())
+
+
+def top_level(durations: dict) -> dict:
+    """The top-level stages of a :meth:`SpanChain.durations` dict (the
+    ones that telescope to the chain's total): nested keys carry a dot."""
+    return {k: v for k, v in durations.items() if "." not in k}
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +318,8 @@ class Trace:
             "total_s": self.total(),
             "root_stages": [[stage, dt] for stage, dt
                             in self.root.segments()],
+            "nested_stages": [[key, dt] for key, dt
+                              in self.root.nested_durations().items()],
             "residual_s": self.residual(),
             "spans": [s.to_dict() for s in list(self.spans)],
         }
@@ -338,3 +409,143 @@ def issuer_scope(name: str):
         yield
     finally:
         _ISSUER.reset(token)
+
+
+# -- stages of a traced bucket call (dispatcher -> registry -> ransac) --
+
+_STAGE_CLOCK: contextvars.ContextVar = contextvars.ContextVar(
+    "esac_obs_stage_clock", default=None
+)
+
+
+def serve_stage(stage: str) -> None:
+    """Boundary: the bucket call's ``stage`` (:data:`SERVE_STAGES`) has
+    been issued.  One contextvar read when the dispatch is untraced (no
+    sync, no allocation); under :func:`stage_scope` the running
+    :class:`StageClock` marks it."""
+    clock = _STAGE_CLOCK.get()
+    if clock is not None:
+        clock.mark(stage)
+
+
+@contextlib.contextmanager
+def stage_scope(clock):
+    """Run a traced bucket call with ``clock`` marking its stages."""
+    token = _STAGE_CLOCK.set(clock)
+    try:
+        yield
+    finally:
+        _STAGE_CLOCK.reset(token)
+
+
+def _profiling() -> bool:
+    from torch.autograd import profiler
+
+    return profiler._is_profiler_enabled
+
+
+def open_range(name: str):
+    """Enter a host-only profiler range ``esac.<name>`` while a profiler
+    runs: a record function that is not a user annotation, so kineto
+    mirrors no device event for it.  None while no profiler runs (or
+    where this torch has no such range)."""
+    if not _profiling():
+        return None
+    try:
+        from torch._C._profiler import _RecordFunctionFast
+    except ImportError:
+        return None
+    rf = _RecordFunctionFast("esac." + name)
+    rf.__enter__()
+    return rf
+
+
+def close_range(rf) -> None:
+    """Exit a range :func:`open_range` entered (None: nothing)."""
+    if rf is None:
+        return
+    try:
+        rf.__exit__(None, None, None)
+    except RuntimeError:
+        # Entered as the profiler started, before it recorded: nothing open.
+        pass
+
+
+@contextlib.contextmanager
+def host_range(name: str):
+    """The body inside the host-only profiler range ``esac.<name>``."""
+    rf = open_range(name)
+    try:
+        yield
+    finally:
+        close_range(rf)
+
+
+class StageClock:
+    """The boundaries of one traced bucket call: the dispatcher's clock at
+    each (:meth:`begin` at the ``staged`` stamp, :func:`serve_stage` marks,
+    :meth:`finish` at the ``dispatched`` stamp, which marks ``outputs``), a
+    timing CUDA event recorded on the current stream at each when
+    ``device`` is a card, and the profiler range of the stage running.
+    After each mark the range of the next stage in :data:`SERVE_STAGES`
+    opens.  The device's stage times are read only after the caller's
+    synchronization (:meth:`device_stages`)."""
+
+    __slots__ = ("_clock", "_device", "marks", "_events", "_range")
+
+    def __init__(self, clock, device):
+        self._clock = clock
+        self._device = device if getattr(device, "type", None) == "cuda" else None
+        self.marks: list[tuple[str | None, float]] = []
+        self._events: list = []
+        self._range = None
+
+    def _record(self) -> None:
+        if self._device is not None:
+            import torch
+
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self._device))
+            self._events.append(ev)
+
+    def begin(self) -> float:
+        t = self._clock()
+        self.marks.append((None, t))
+        self._record()
+        self._range = open_range(SERVE_STAGES[0])
+        return t
+
+    def mark(self, stage: str) -> float:
+        t = self._clock()
+        self._record()
+        close_range(self._range)
+        i = SERVE_STAGES.index(stage) + 1
+        self._range = open_range(SERVE_STAGES[i]) if i < len(SERVE_STAGES) else None
+        self.marks.append((stage, t))
+        return t
+
+    def finish(self) -> float:
+        """Mark ``outputs``; returns the ``dispatched`` stamp's time."""
+        return self.mark("outputs")
+
+    def abandon(self) -> None:
+        """Close the open range of a call that raised."""
+        close_range(self._range)
+        self._range = None
+
+    def marked(self) -> bool:
+        """Whether the call marked any stage of its own (a bucket function
+        of the registry does; a bare infer_fn does not)."""
+        return len(self.marks) > 2
+
+    def host_stages(self) -> list[tuple[str, float]]:
+        """``(dispatched.<stage>, seconds)`` between consecutive marks."""
+        return [("dispatched." + stage, t1 - t0)
+                for (_, t0), (stage, t1) in zip(self.marks, self.marks[1:])]
+
+    def device_stages(self) -> list[tuple[str, float]]:
+        """``(gpu.<stage>, seconds)`` between consecutive events; call
+        after a synchronization past :meth:`finish` (empty off the card)."""
+        return [("gpu." + stage, e0.elapsed_time(e1) / 1e3)
+                for (stage, _), e0, e1 in zip(self.marks[1:], self._events,
+                                              self._events[1:])]

@@ -38,6 +38,7 @@ import dataclasses
 
 import torch
 
+from esac_tpu_torch.obs.trace import serve_stage
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.ransac.fused_scoring import broadcast_pixels
 from esac_tpu_torch.geometry.camera import reprojection_errors
@@ -61,6 +62,12 @@ from esac_tpu_torch.ransac.scoring import soft_inlier_score, subsample_cells
 from esac_tpu_torch.utils.precision import resolve_device
 
 
+def _expert_sets(generators, n_hyps, N, M):
+    """Each frame's generator draws (M, n_hyps, 4) correspondence sets, one
+    stream per expert index.  Returns (B, M, n_hyps, 4)."""
+    return torch.stack([sample_correspondence_sets(g, n_hyps, N, (M,)) for g in generators])
+
+
 def _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx=None):
     """n_hyps hypotheses per expert: coords_all (B, M, N, 3), pixels (N, 2)
     or (B, N, 2), f (B,), one generator per frame; ``idx``
@@ -68,8 +75,7 @@ def _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx=None):
     and the focal per problem (B, M)."""
     B, M, N = coords_all.shape[:3]
     if idx is None:
-        idx = torch.stack([sample_correspondence_sets(g, cfg.n_hyps, N, (M,))
-                           for g in generators])
+        idx = _expert_sets(generators, cfg.n_hyps, N, M)
     fBM = f[:, None].expand(B, M)
     rvecs, tvecs = generate_hypotheses(None, coords_all, pixels, fBM, c, cfg, idx=idx)
     return rvecs, tvecs, fBM
@@ -78,9 +84,9 @@ def _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx=None):
 def _routed_sets(generators, n_hyps, N, M, sel):
     """Correspondence sets of the selected experts: each frame's generator
     draws (M, n_hyps, 4) -- one stream per GLOBAL expert index, as
-    :func:`_expert_hypotheses` draws them for the dense path -- and the
-    rows of ``sel`` (B, K) are kept.  Returns (B, K, n_hyps, 4)."""
-    idx = torch.stack([sample_correspondence_sets(g, n_hyps, N, (M,)) for g in generators])
+    :func:`_expert_sets` draws them for the dense path -- and the rows of
+    ``sel`` (B, K) are kept.  Returns (B, K, n_hyps, 4)."""
+    idx = _expert_sets(generators, n_hyps, N, M)
     return idx[torch.arange(len(generators), device=idx.device)[:, None], sel.to(idx.device)]
 
 
@@ -99,10 +105,15 @@ def _per_expert_winners(generators, coords_all, pixels, f, c, cfg, idx=None, sel
     the scores were taken on (the prior slot scores on the same cells).
     The global winner is ``m* = argmax(best_s)``, ``j* = best_j[m*]``: the
     flat first-max argmax over all K x n_hyps scores, ties included.
+    Marks the "sampling" and "hypotheses" stages (``obs.serve_stage``).
     """
-    if idx is None and sel is not None:
-        idx = _routed_sets(generators, cfg.n_hyps, coords_all.shape[2], M, sel)
+    K, N = coords_all.shape[1:3]
+    if idx is None:
+        idx = (_expert_sets(generators, cfg.n_hyps, N, K) if sel is None
+               else _routed_sets(generators, cfg.n_hyps, N, M, sel))
+    serve_stage("sampling")
     rvecs, tvecs, fBM = _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx)
+    serve_stage("hypotheses")
     cells = subsample_cells(generators, coords_all, pixels, cfg.score_cells)
     best_j, best_s, scores = _infer_winner(rvecs, tvecs, cells[0], cells[1], fBM, c, cfg)
     scale = cells[2]
@@ -139,7 +150,9 @@ def _serve_frames(generators, gating_logits, coords, pixels, f, c, cfg, idx, dev
     ``cfg.n_hyps * M // K`` hypotheses and a dropped pair scores ``-inf``
     (a frame whose every pair dropped refines hypothesis 0 of slot 0: the
     reference's flat-argmax failure output).  ``prior = (rvecs, tvecs,
-    valid)`` (B, P, 3), (B, P, 3), (B, P) adds the prior slot.
+    valid)`` (B, P, 3), (B, P, 3), (B, P) adds the prior slot.  Marks the
+    "sampling" to "refine" stages of a traced dispatch
+    (``obs.serve_stage``); the marks change no result.
     """
     dev = resolve_device(device)
     coords, pixels, c = as_f32(coords, dev), as_f32(pixels, dev), as_f32(c, dev)
@@ -177,9 +190,12 @@ def _serve_frames(generators, gating_logits, coords, pixels, f, c, cfg, idx, dev
         hit, slot = _take(is_prior, mi), _take(pj, mi)
         rv0 = torch.where(hit[:, None], _take(p_rv, slot), rv0)
         tv0 = torch.where(hit[:, None], _take(p_tv, slot), tv0)
+    coords_w = _take(coords, mi)
+    serve_stage("scoring")
     rvec, tvec = refine_soft_inliers(
-        rv0, tv0, _take(coords, mi), broadcast_pixels(pixels, (B,)), f, c,
+        rv0, tv0, coords_w, broadcast_pixels(pixels, (B,)), f, c,
         cfg.tau, cfg.beta, iters=cfg.refine_iters)
+    serve_stage("refine")
     best = _take(ext_s, mi)
     out = {
         "rvec": rvec,

@@ -28,6 +28,10 @@ block width is one constant per (cfg, k), so a frame's expert CNNs run at
 the same width in every frame bucket.  At k = M it runs the dense CNN
 schedule and equals ``make_scene_bucket_fn`` bit for bit.
 
+Under a traced dispatch both bucket functions mark the stages of the
+call (``obs.serve_stage``): "resolve" as the body starts, "cnn" after the
+CNNs, and the RANSAC stages inside ``ransac.esac._serve_frames``.
+
 Both bucket functions record the batch signatures they run
 (``fn._cache_size()``, ``serve.batching.count_signatures``): PyTorch
 compiles nothing per shape, so where the JAX package counts compiled
@@ -74,7 +78,7 @@ from esac_tpu_torch.ransac.esac import (
 )
 from esac_tpu_torch.ransac.kernel import as_f32, frame_generators
 from esac_tpu_torch.obs import MetricsRegistry
-from esac_tpu_torch.obs.trace import active_traces
+from esac_tpu_torch.obs.trace import active_traces, serve_stage
 from esac_tpu_torch.registry.cache import DeviceWeightCache
 from esac_tpu_torch.registry.health import (
     ChecksumMismatchError,
@@ -147,9 +151,11 @@ def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
 
     def run(params: dict, batch: dict) -> dict:
         with torch.inference_mode():
+            serve_stage("resolve")
             imgs = as_f32(batch["image"], dev)
             B = imgs.shape[0]
             coords, logits = scene_forward(params, imgs)
+            serve_stage("cnn")
             args = (frame_generators(batch["seed"], dev), logits, coords, pixels,
                     params["f"].expand(B), params["c"])
             if "prior_rvec" in batch:
@@ -184,6 +190,7 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
 
     def run(params: dict, batch: dict) -> dict:
         with torch.inference_mode():
+            serve_stage("resolve")
             imgs = as_f32(batch["image"], dev)
             B = imgs.shape[0]
             if k == M:  # identity routing: the dense CNN schedule
@@ -201,6 +208,7 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
                                       for m, net in enumerate(params["expert"])])
                 blocks = blocks.reshape(M, cap, -1, 3) + params["centers"][:, None, None, :]
                 coords = blocks[selected, pos.clamp(max=cap - 1)]
+            serve_stage("cnn")
             args = (frame_generators(batch["seed"], dev), logits, coords, selected, kept,
                     pixels, params["f"].expand(B), params["c"])
             if "prior_rvec" in batch:

@@ -79,7 +79,17 @@ counters (updated in the same locked sections as the attributes).  With
 points (admitted -> coalesced -> staged -> dispatched -> device -> sliced
 -> outcome); the stamps reuse the dispatch path's own timestamps and its
 one synchronization -- zero added syncs -- and per-stage durations land in
-the ``serve_stage_seconds`` histogram at ``_finish``.  NOTE on sharing:
+the ``serve_stage_seconds`` histogram at ``_finish``.  A traced dispatch
+also nests the stages of its bucket call inside ``dispatched``
+(``dispatched.<stage>`` on the host, ``gpu.<stage>`` on the card; see
+``obs.trace``), and the worker's waits, the staging and the readback run
+inside host-only profiler ranges (``esac.wait_work``, ``esac.hold``,
+``esac.staging``, ``esac.to_host``, ``esac.<stage>``).  Tracing covers
+``infer_many`` too: each bulk dispatch mints one
+:class:`~esac_tpu_torch.obs.Trace` (admitted -> staged -> coalesced, the
+wait behind the call's previous dispatch -> dispatched -> device -> sliced
+-> served, plus the nested stages), kept in the dispatcher's trace store
+and observed into ``serve_stage_seconds``.  NOTE on sharing:
 give two dispatchers one registry only if you want AGGREGATED counters --
 ``slo_totals`` then spans both dispatchers while ``pending`` stays
 per-instance; collector registration is last-wins, and ``reset_stats``
@@ -90,13 +100,24 @@ counters but clears the shared latency/stage histograms.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 
 import numpy as np
 import torch
 
-from esac_tpu_torch.obs import MetricsRegistry, SpanChain, Trace, trace_scope
+from esac_tpu_torch.obs import (
+    MetricsRegistry,
+    SpanChain,
+    StageClock,
+    Trace,
+    close_range,
+    host_range,
+    open_range,
+    stage_scope,
+    trace_scope,
+)
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.ransac.esac import esac_infer_frames
 from esac_tpu_torch.ransac.kernel import dsac_infer_frames, frame_generators
@@ -125,6 +146,8 @@ from esac_tpu_torch.utils.precision import resolve_device
 # so tests can shrink them to drill the wedged-close path.
 _LEGACY_DRAIN_JOIN_S = 60.0
 _WATCHDOG_JOIN_S = 2.0
+# The range an untraced path enters: nothing.
+_NO_RANGE = contextlib.nullcontext()
 
 
 class _Request:
@@ -640,27 +663,51 @@ class MicroBatchDispatcher:
         for n in plan:
             bounds.append((lo, lo + n))
             lo += n
+        traced = self._trace
 
         def stage(lo, hi):
+            t0 = self._clock()
             bucket = pick_bucket(hi - lo, self._buckets)
-            padded, n_valid = self._staging.stage(frames[lo:hi], bucket)
-            return self._to_device(padded), n_valid, bucket
+            with self._range("staging", traced):
+                padded, n_valid = self._staging.stage(frames[lo:hi], bucket)
+                tree = self._to_device(padded)
+            trace = None
+            if traced:
+                trace = Trace(t0, scene=scene, root_stage="admitted")
+                trace.stamp("staged", self._clock())
+            return tree, n_valid, bucket, trace
 
         results: list[dict] = []
         staged = stage(*bounds[0])
         for i in range(len(bounds)):
-            tree, n_valid, bucket = staged
+            tree, n_valid, bucket, trace = staged
+            clock = None if trace is None else StageClock(self._clock, self._device)
             with DISPATCH_GATE.held():
                 # the call returns once its work is queued (or, where the
                 # RANSAC path synchronizes inside, once that sync passed)
-                out = self._call(tree, scene, route_k, n_hyps)
+                if clock is None:
+                    out = self._call(tree, scene, route_k, n_hyps)
+                else:
+                    # "coalesced": behind the previous dispatch of the call
+                    trace.stamp("coalesced", clock.begin())
+                    with trace_scope((trace,)):
+                        out = self._staged_call(clock, tree, scene, route_k, n_hyps)
+                    trace.stamp("dispatched", clock.finish())
                 done = self._record_done()
                 if i + 1 < len(bounds):
                     staged = stage(*bounds[i + 1])  # host staging overlaps compute
                 self._wait(done)
             t_done = self._clock()
-            keys, host_leaves = self._to_host(out)
+            with self._range("to_host", traced):
+                keys, host_leaves = self._to_host(out)
+                rows = [dict(zip(keys, (hl[j] for hl in host_leaves)))
+                        for j in range(n_valid)]
+            if trace is not None:
+                trace.stamp("device", t_done)
+                self._close_bulk_trace(trace, clock)
             with self._lock:
+                if trace is not None:
+                    self._publish_bulk_trace(trace)
                 self._record(
                     bucket, n_valid, scene,
                     route_k, [t_done - t_submit] * n_valid,
@@ -671,11 +718,24 @@ class MicroBatchDispatcher:
                 # server.
                 self._count_outcome("served", scene, route_k, route_k,
                                     n=n_valid)
-            results.extend(
-                dict(zip(keys, (hl[j] for hl in host_leaves)))
-                for j in range(n_valid)
-            )
+            results.extend(rows)
         return results
+
+    def _close_bulk_trace(self, trace: Trace, clock: StageClock) -> None:
+        """Finish one traced bulk dispatch's trace after its results were
+        sliced, with the bucket call's nested stages."""
+        t = self._clock()
+        trace.stamp("sliced", t)
+        if clock.marked():
+            trace.root.nest(clock.host_stages() + clock.device_stages())
+        trace.finish("served", t)
+
+    def _publish_bulk_trace(self, trace: Trace) -> None:
+        """A finished bulk trace into the stage histogram and the trace
+        store (lock held, as ``_finish`` publishes a request's)."""
+        for stage, dt in trace.durations().items():
+            self._m_stage.observe(dt, stage=stage)
+        self._trace_store.add(trace)
 
     # ---------------- worker ----------------
 
@@ -692,6 +752,31 @@ class MicroBatchDispatcher:
         if scene is None:
             return self._infer(tree)
         return self._infer(tree, scene)
+
+    def _staged_call(self, clock, tree, scene, route_k=None, n_hyps=None):
+        """:meth:`_call`, with ``clock`` (a begun :class:`StageClock`, or
+        None untraced) marking the bucket call's stages."""
+        if clock is None:
+            return self._call(tree, scene, route_k, n_hyps)
+        with stage_scope(clock):
+            try:
+                return self._call(tree, scene, route_k, n_hyps)
+            except BaseException:
+                clock.abandon()
+                raise
+
+    @staticmethod
+    def _range(name: str, on: bool):
+        """The host-only profiler range ``esac.<name>`` when ``on`` (a
+        traced path), else a context that does nothing."""
+        return host_range(name) if on else _NO_RANGE
+
+    def _nest(self, reqs, stages) -> None:
+        """Add nested stage entries to every traced, unresolved request's
+        chain (the same best-effort skip as :meth:`_stamp`)."""
+        for r in reqs:
+            if r.spans is not None and not r.done:
+                r.spans.nest(stages)
 
     def _count_offered(self, n: int = 1):
         """Count ``n`` offered requests (lock held): legacy attribute and
@@ -862,11 +947,19 @@ class MicroBatchDispatcher:
                     self._staging.reserve(self._warm_frame, self._buckets)
             finally:
                 ready.set()
+            idle = None  # the wait's range, entered by the last _run
             while True:
+                ranges = self._tracing_any  # the waits' profiler ranges
                 with self._work:
-                    while not self._n_pending and not self._closed \
-                            and gen == self._gen:
-                        self._work.wait()
+                    if idle is None and ranges:
+                        idle = open_range("wait_work")
+                    try:
+                        while not self._n_pending and not self._closed \
+                                and gen == self._gen:
+                            self._work.wait()
+                    finally:
+                        close_range(idle)
+                        idle = None
                     if gen != self._gen:
                         return  # abandoned by the watchdog: a new worker owns the queue
                     if not self._n_pending:
@@ -876,12 +969,13 @@ class MicroBatchDispatcher:
                     # the back, so a flooding lane cannot starve the others.
                     lane, q = next(iter(self._pending.items()))
                     deadline = self._hold_deadline(q[0])
-                    while len(q) < big and not self._closed \
-                            and gen == self._gen:
-                        remaining = deadline - self._clock()
-                        if remaining <= 0:
-                            break
-                        self._work.wait(remaining)
+                    with self._range("hold", ranges):
+                        while len(q) < big and not self._closed \
+                                and gen == self._gen:
+                            remaining = deadline - self._clock()
+                            if remaining <= 0:
+                                break
+                            self._work.wait(remaining)
                     if gen != self._gen:
                         return
                     # Re-fetch the lane: the watchdog's expiry sweep /
@@ -913,7 +1007,7 @@ class MicroBatchDispatcher:
                         self._inflight = _Inflight(gen, lane, batch,
                                                    self._clock())
                 if batch:
-                    self._run(batch, lane, eff_k, degraded, gen)
+                    idle = self._run(batch, lane, eff_k, degraded, gen)
         except BaseException as e:  # noqa: BLE001 — a dying worker must not strand callers
             self._on_worker_death(gen, e)
             raise
@@ -944,7 +1038,13 @@ class MicroBatchDispatcher:
         """Execute one dispatch (worker thread or sync path), with SLO
         retry/quarantine handling.  ``gen`` is the worker generation (None
         on the sync path); a dispatch whose generation was abandoned by
-        the watchdog discards its late outcome entirely."""
+        the watchdog discards its late outcome entirely.  A traced worker
+        dispatch that is served returns the worker's ``esac.wait_work``
+        range, entered before its requests are resolved: a caller that
+        stops a profiler once answered then finds no record function
+        being entered on this thread (``profile_all_threads`` finalizes
+        the trace unguarded against threads still recording); else
+        None."""
         scene, route_k = lane[0], lane[1]
         n_hyps = lane[2] if len(lane) > 2 else None
         self._stamp(reqs, "coalesced")
@@ -978,11 +1078,14 @@ class MicroBatchDispatcher:
                 # rejection promise dies if submitters queue behind a
                 # full bucket's fan-out.
                 keys, host_leaves = host
-                results = [
-                    dict(zip(keys, (hl[i] for hl in host_leaves)))
-                    for i in range(len(reqs))
-                ]
+                with self._range("to_host", bool(traced)):
+                    results = [
+                        dict(zip(keys, (hl[i] for hl in host_leaves)))
+                        for i in range(len(reqs))
+                    ]
                 self._stamp(reqs, "sliced")
+                idle = (open_range("wait_work") if traced and gen is not None
+                        else None)
             except Exception as e:  # noqa: BLE001 — fan the failure out
                 attempt += 1
                 with self._work:
@@ -1030,6 +1133,7 @@ class MicroBatchDispatcher:
                 continue
             with self._work:
                 if gen is not None and gen != self._gen:
+                    close_range(idle)
                     return  # abandoned mid-dispatch: requests already failed
                 self._inflight = None
                 self._fail_streak[lane] = 0
@@ -1067,7 +1171,7 @@ class MicroBatchDispatcher:
                     # calls, so accounting and done-flags move together.
                     self._count_outcome(outcome, scene, route_k, eff_k,
                                         n=n_ok)
-            return
+            return idle
 
     def _dispatch(self, reqs: list[_Request], scene, route_k, n_hyps=None):
         """Pad, stage and execute one dispatch; returns the host-side
@@ -1075,19 +1179,30 @@ class MicroBatchDispatcher:
         caller owns locking and fan-out.  The span stamps reuse the
         timeline the dispatch path already walks (the copy to the device,
         the call, the synchronization the path ALWAYS performs) -- tracing
-        adds clock reads, never a sync."""
+        adds clock reads, never a sync.  A batch with a traced request
+        runs the call under a :class:`~esac_tpu_torch.obs.StageClock`
+        begun at the ``staged`` stamp and finished at the ``dispatched``
+        one: the call's nested stages (host, and the card's after the
+        synchronization) land on every traced chain."""
+        traced = self._tracing_any and any(r.spans is not None for r in reqs)
+        clock = StageClock(self._clock, self._device) if traced else None
         bucket = pick_bucket(len(reqs), self._buckets)
-        padded, n_valid = self._staging.stage(
-            [r.frame for r in reqs], bucket
-        )
-        staged = self._to_device(padded)
-        self._stamp(reqs, "staged")
-        out = self._call(staged, scene, route_k, n_hyps)
-        self._stamp(reqs, "dispatched")
+        with self._range("staging", traced):
+            padded, n_valid = self._staging.stage(
+                [r.frame for r in reqs], bucket
+            )
+            staged = self._to_device(padded)
+        self._stamp(reqs, "staged", None if clock is None else clock.begin())
+        out = self._staged_call(clock, staged, scene, route_k, n_hyps)
+        self._stamp(reqs, "dispatched", None if clock is None else clock.finish())
         self._wait(self._record_done())
         t_done = self._clock()
         self._stamp(reqs, "device", t_done)
-        return self._to_host(out), bucket, n_valid, t_done
+        if clock is not None and clock.marked():
+            self._nest(reqs, clock.host_stages() + clock.device_stages())
+        with self._range("to_host", traced):
+            host = self._to_host(out)
+        return host, bucket, n_valid, t_done
 
     def _to_device(self, tree: dict) -> dict:
         """Every staged leaf onto the serving device: one

@@ -45,6 +45,8 @@ import pathlib
 import sys
 import time
 
+from esac_tpu_torch.obs.trace import top_level
+
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 # The fleet bench's toy operating point (bench constants FLEET_*).
@@ -59,11 +61,12 @@ CAPACITY_REPS = 5
 def stage_table(per_request_durations: list[dict]) -> dict:
     """Aggregate per-request ``SpanChain.durations()`` dicts into the
     per-stage table: count, mean/p50/p99 ms, and share of the summed
-    end-to-end wall.  Pure function."""
+    end-to-end wall (the top-level stages'; a nested stage's row shares
+    that wall).  Pure function."""
     stages: dict[str, list[float]] = {}
     totals = []
     for durs in per_request_durations:
-        totals.append(math.fsum(durs.values()))
+        totals.append(math.fsum(top_level(durs).values()))
         for stage, dt in durs.items():
             stages.setdefault(stage, []).append(dt)
     wall = math.fsum(totals)
@@ -92,7 +95,7 @@ def host_overhead_summary(per_request_durations: list[dict]) -> dict:
     for durs in per_request_durations:
         d = durs.get("device", 0.0)
         device.append(d)
-        host.append(math.fsum(durs.values()) - d)
+        host.append(math.fsum(top_level(durs).values()) - d)
     n = max(len(host), 1)
     return {
         "host_ms_per_request_mean": round(math.fsum(host) / n * 1e3, 4),

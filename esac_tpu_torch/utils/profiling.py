@@ -1,6 +1,5 @@
-"""Profiling: a fenced stage timer, the hypotheses/s counter, a profiler
-trace and the FLOP / roofline model (counterpart of
-``esac_tpu/utils/profiling.py``).
+"""Profiling: a fenced stage timer, the hypotheses/s counter and the FLOP /
+roofline model (counterpart of ``esac_tpu/utils/profiling.py``).
 
 PyTorch returns before the card has finished, so a wall clock around a
 CUDA call measures the enqueue: every timer here fences with
@@ -84,20 +83,6 @@ def hypotheses_per_sec(fn, args: tuple, n_hyps_per_call: int, repeats: int = 20,
         fn(*args)
     wait_for(device)
     return repeats * n_hyps_per_call / (time.perf_counter() - t0)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """A ``torch.profiler`` trace of the body, CPU and (when there is a
-    card) CUDA activity, written to ``log_dir`` for TensorBoard."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():  # torch-lint: disable=R6(what to trace, not where to run)
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
 
 
 # Model FLOP counts per stage (the JAX package's hand counts; mul, add, div,

@@ -39,7 +39,7 @@ from esac_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     save_train_state,
 )
-from esac_tpu_torch.utils.profiling import StageTimer, hypotheses_per_sec, trace, wait_for
+from esac_tpu_torch.utils.profiling import StageTimer, hypotheses_per_sec, wait_for
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_models.py
@@ -154,13 +154,6 @@ def test_stage_timer_counts_and_totals():
     wait_for(None)
     wait_for(torch.zeros(1))
     assert hypotheses_per_sec(lambda x: x + 1, (torch.zeros(4),), 256, repeats=3) > 0
-
-
-def test_trace_writes_a_profiler_trace(tmp_path):
-    with trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert list((tmp_path / "tr").glob("*.json"))
 
 
 def test_jax_checkpoint_carried_across(tmp_path):
