@@ -68,6 +68,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  slots, all invalid) through both bucket functions bit-equal
                  to the plain dispatch; stage times of a routed K = 2
                  dispatch at 4 and 16 lanes;
+5b. graphs    -- the served RANSAC chain's CUDA graphs (registry/graphs.py)
+                 at the phase-5 preset under "fused_select": dense, routed
+                 K = 2 and prior-slot (4 slots) bucket functions at 1, 4, 16
+                 and 64 frames (2, 4, 16, 64 lanes), four calls each on new
+                 frames, alternating two scenes of other weights, centers,
+                 focal length and principal point (one bucket function
+                 serves both): the first call runs eagerly, the second
+                 captures, the others replay; each call's rvec, tvec,
+                 expert, score and inlier_frac (and the lane's
+                 experts_evaluated or prior_hit / prior_slot) bit-equal to
+                 a fresh bucket function's eager run of the same batch, one
+                 select launch a call (replays included), one capture and
+                 two replays a signature and stage; host ms of each call
+                 (synchronized) beside the eager run's;
 6. training   -- (a) both kernels' autograd Functions at P = 2 frames x 7
                  experts, H = 256, N = 4800: the forwards against the plain
                  versions (the tolerance of phase 3) and against a second
@@ -1234,6 +1248,85 @@ def phase_serving(dev, seed):
                 f"[serving] profiled {lanes}-lane fused_select dispatch")
     return dict(dispatches=dispatches, launches=launches, peak_bytes=peak,
                 stages=stages, device_busy=busy, cross_bucket=cross, routed=routed_res)
+
+
+GRAPHS = dict(buckets=(1, 4, 16, 64), calls=4)
+GRAPH_STAGES = ("hypotheses", "scoring", "refine")
+
+
+def phase_graphs(dev, seed, size=GRAPHS):
+    """Phase 5b (module docstring): CUDA-graph replays of the served chain
+    against the eager path, bit for bit."""
+    import torch
+
+    from esac_tpu_torch.ransac.config import RansacConfig
+    from esac_tpu_torch.registry.serving import (
+        init_scene_params,
+        make_routed_scene_bucket_fn,
+        make_scene_bucket_fn,
+    )
+
+    preset = _serving_preset()
+    scenes = [init_scene_params(preset, seed=seed + s, device=dev) for s in (0, 1)]
+    scenes[1]["f"] = scenes[1]["f"] * 1.1
+    scenes[1]["c"] = scenes[1]["c"] + torch.tensor([3.0, -2.0], device=dev)
+    scenes[1]["centers"] = scenes[1]["centers"] + 0.5
+    cfg = RansacConfig(scoring_impl="fused_select")
+    makers = {"dense": lambda: make_scene_bucket_fn(preset, cfg, dev),
+              "routed": lambda: make_routed_scene_bucket_fn(preset, cfg, ROUTED_K, dev),
+              "prior": lambda: make_scene_bucket_fn(preset, cfg, dev)}
+    keys = ("rvec", "tvec", "expert", "score", "inlier_frac")
+    extra = {"dense": (), "routed": ("experts_evaluated",),
+             "prior": ("prior_hit", "prior_slot")}
+    rng = np.random.default_rng(seed + 7)
+    out = {}
+    for lane, make in makers.items():
+        fn = make()
+        for bucket in size["buckets"]:
+            lanes = max(bucket, 2)
+            ms, eager_ms, hits = [], [], 0
+            for call in range(size["calls"]):
+                batch = {"image": rng.uniform(0, 1, (lanes, preset.height, preset.width, 3))
+                         .astype(np.float32),
+                         "seed": rng.integers(0, 2 ** 62, lanes)}
+                if lane == "prior":
+                    batch.update(
+                        prior_rvec=rng.normal(0, 0.2, (lanes, PRIOR_SLOTS, 3)).astype(np.float32),
+                        prior_tvec=rng.normal(0, 1.0, (lanes, PRIOR_SLOTS, 3)).astype(np.float32),
+                        prior_valid=rng.uniform(size=(lanes, PRIOR_SLOTS)) < 0.5)
+                params = scenes[call % 2]
+                what = f"[graphs] {lane} {lanes} lanes, call {call}"
+                sync(dev)
+                t0 = time.perf_counter()
+                got, _ = counted(dev, "fused_select", what, lambda: fn(params, batch),
+                                 prior=lane == "prior")
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                want = make()(params, batch)  # a new function's first call runs eagerly
+                sync(dev)
+                eager_ms.append((time.perf_counter() - t0) * 1e3)
+                _bit_equal(got, want, keys + extra[lane], what)
+                if lane == "prior":
+                    hits += int(want["prior_hit"].sum())
+            out[f"{lane}_{lanes}"] = dict(eager_ms=eager_ms, first_ms=ms[0], capture_ms=ms[1],
+                                          replay_ms=ms[2:], prior_hits=hits)
+            log(f"[graphs] {lane} {lanes} lanes: eager {min(eager_ms):.1f} ms, first call "
+                f"{ms[0]:.1f}, capture {ms[1]:.1f}, replays "
+                + ", ".join(f"{v:.1f}" for v in ms[2:]) + " ms; bit-equal"
+                + (f"; {hits} prior hits" if lane == "prior" else ""))
+        g = fn.graphs
+        n = g.signatures()
+        counts = {stage: (g.captures.get(stage=stage), g.replays.get(stage=stage))
+                  for stage in GRAPH_STAGES}
+        # CPU tensors run the chain eagerly: no signature is kept there.
+        want_n = len(size["buckets"]) if dev.type == "cuda" else 0
+        want_counts = (want_n, want_n * (size["calls"] - 2))
+        if n != want_n or any(c != want_counts for c in counts.values()):
+            raise AssertionError(f"[graphs] {lane}: {n} signatures, captures and replays "
+                                 f"{counts}, expected {want_counts} a stage")
+        out[f"{lane}_counts"] = dict(signatures=n, by_stage=counts)
+    return out
 
 
 def pad_batch_warm(images, lanes):
@@ -4287,6 +4380,7 @@ def main(argv=None) -> int:
         kernels = phase_kernels(dev, args.seed)
         phase_recovery(dev, args.seed)
         serving = phase_serving(dev, args.seed)
+        graphs = phase_graphs(dev, args.seed)
         training = phase_training(dev, args.seed)
         workflow = phase_workflow(dev, args.seed)
         witness = _lint_witnesses()
@@ -4355,7 +4449,8 @@ def main(argv=None) -> int:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
-                                       kernels=kernels, serving=serving, training=training,
+                                       kernels=kernels, serving=serving, graphs=graphs,
+                                       training=training,
                                        workflow=workflow, server=server, fleet=fleet,
                                        parallel=parallel, lint=lint, bench=bench,
                                        experiments=experiments),
@@ -4373,6 +4468,7 @@ def main(argv=None) -> int:
         "functions_forward_max_abs_err": training["functions"]["err_forward"],
         "functions_max_rel_err": {"scores": training["functions"]["err_scores"],
                                   "select": training["functions"]["err_select"]}}}))
+    print(json.dumps({"graphs": {"device": name, "nvidia_smi": smi, **graphs}}))
     print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
     print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
     print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))

@@ -129,7 +129,7 @@ def _solve6_spd(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         piv = torch.where(torch.abs(piv) < 1e-12, torch.full_like(piv, 1e-12), piv)
         row = M[..., i, :] / piv[..., None]
         keep = torch.ones(6, dtype=M.dtype, device=M.device)
-        keep[i] = 0.0
+        keep[i].fill_(0.0)  # a fill on the device: no host scalar copied over
         factors = M[..., :, i] * keep
         M = M - factors[..., :, None] * row[..., None, :]
         M[..., i, :] = row

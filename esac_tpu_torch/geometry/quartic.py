@@ -53,8 +53,10 @@ def solve_cubic(B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> torch.Tens
         -P / (3.0 * torch.where(small, torch.ones_like(U), U)),
     )
     omega = complex(math.cos(2 * math.pi / 3), math.sin(2 * math.pi / 3))
-    ks = torch.tensor([1.0 + 0j, omega, omega * omega], dtype=torch.complex64,
-                      device=B.device)
+    # Filled on the device: a host list copied over would sync with the
+    # stream (and could not be captured in a CUDA graph).
+    ks = torch.stack([torch.full((), k, dtype=torch.complex64, device=B.device)
+                      for k in (1.0 + 0j, omega, omega * omega)])
     return ks * U[..., None] + ks.conj() * W[..., None] - (B / 3.0)[..., None]
 
 

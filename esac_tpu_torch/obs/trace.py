@@ -34,20 +34,22 @@ boundary (:func:`serve_stage`):
                    cache)
   ``cnn``        -- the images to float32 and the expert and gating CNNs
   ``sampling``   -- the per-frame generators (the seed readback, which
-                   waits for the CNNs on the card) and the correspondence
-                   sets
+                   waits for the CNNs on the card), the correspondence
+                   sets and the cell subsample's draws
   ``hypotheses`` -- gather, P3P and polish of every hypothesis
-  ``scoring``    -- the cell subsample, score and select, the prior slot,
-                   the argmax over experts and the winner's takes
-  ``refine``     -- IRLS refinement of the winner
-  ``outputs``    -- the output dict and the health probe, up to the
-                   ``dispatched`` stamp
+  ``scoring``    -- the cell subsample's gathers, score and select, the
+                   prior slot, the argmax over experts and the winner's
+                   takes
+  ``refine``     -- IRLS refinement of the winner and the result's few ops
+  ``outputs``    -- the health probe, up to the ``dispatched`` stamp
 
 They land on the chain as nested entries: ``dispatched.<stage>`` (host
 seconds, the dispatcher's clock) and, on the card, ``gpu.<stage>`` (the
 device's seconds from reaching one boundary to reaching the next, idle
 gaps inside the stage included; CUDA events read after the
-synchronization the dispatch already performs).  The nested host stages
+synchronization the dispatch already performs) and, where a stage ran as
+a CUDA graph replay (``registry.graphs``), ``graph.<stage>`` (the host
+seconds of the replay call).  The nested host stages
 telescope to ``dispatched`` on their own; :meth:`SpanChain.segments`,
 :meth:`~SpanChain.total` and :meth:`~SpanChain.residual` stay over the
 top-level stages, and :meth:`~SpanChain.durations` reports both.  The same
@@ -428,6 +430,16 @@ def serve_stage(stage: str) -> None:
         clock.mark(stage)
 
 
+def graph_replayed(stage: str, seconds: float) -> None:
+    """The bucket call's ``stage`` ran as a CUDA graph replay whose call
+    took ``seconds`` of host time (``registry.graphs``); under
+    :func:`stage_scope` the running :class:`StageClock` keeps it as
+    ``graph.<stage>``."""
+    clock = _STAGE_CLOCK.get()
+    if clock is not None:
+        clock.graph(stage, seconds)
+
+
 @contextlib.contextmanager
 def stage_scope(clock):
     """Run a traced bucket call with ``clock`` marking its stages."""
@@ -491,7 +503,7 @@ class StageClock:
     opens.  The device's stage times are read only after the caller's
     synchronization (:meth:`device_stages`)."""
 
-    __slots__ = ("_clock", "_device", "marks", "_events", "_range")
+    __slots__ = ("_clock", "_device", "marks", "_events", "_range", "_graphs")
 
     def __init__(self, clock, device):
         self._clock = clock
@@ -499,6 +511,7 @@ class StageClock:
         self.marks: list[tuple[str | None, float]] = []
         self._events: list = []
         self._range = None
+        self._graphs: list[tuple[str, float]] = []
 
     def _record(self) -> None:
         if self._device is not None:
@@ -542,6 +555,21 @@ class StageClock:
         """``(dispatched.<stage>, seconds)`` between consecutive marks."""
         return [("dispatched." + stage, t1 - t0)
                 for (_, t0), (stage, t1) in zip(self.marks, self.marks[1:])]
+
+    def graph(self, stage: str, seconds: float) -> None:
+        """Keep the host seconds of ``stage``'s CUDA graph replay
+        (:func:`graph_replayed`)."""
+        self._graphs.append(("graph." + stage, seconds))
+
+    def graph_stages(self) -> list[tuple[str, float]]:
+        """``(graph.<stage>, seconds)`` of each stage that replayed."""
+        return list(self._graphs)
+
+    def stages(self) -> list[tuple[str, float]]:
+        """Every nested entry of the call: :meth:`host_stages`,
+        :meth:`graph_stages` and :meth:`device_stages` (call after a
+        synchronization past :meth:`finish`)."""
+        return self.host_stages() + self.graph_stages() + self.device_stages()
 
     def device_stages(self) -> list[tuple[str, float]]:
         """``(gpu.<stage>, seconds)`` between consecutive events; call

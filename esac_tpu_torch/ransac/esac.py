@@ -25,6 +25,10 @@ The serving variants share that one path (:func:`_serve_frames`):
   streamed winner only on a strictly greater score, so an all-invalid mask
   gives the plain entry's result bit for bit.
 
+After sampling the path is three stages (:data:`_SERVE_CHAIN`), which a
+bucket function's graph cache (``registry.graphs``) replays as CUDA graphs
+on the card; called without one, they run eagerly.
+
 :func:`esac_train_loss_frames` is the training loss, differentiable with
 respect to the coordinates and the gating logits: "dense" weighs every
 expert's expected pose loss by its gating probability (an exact gating
@@ -34,7 +38,9 @@ gradient by a REINFORCE term.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import torch
 
@@ -58,7 +64,12 @@ from esac_tpu_torch.ransac.kernel import (
 )
 from esac_tpu_torch.ransac.refine import refine_soft_inliers
 from esac_tpu_torch.ransac.sampling import sample_correspondence_sets, sample_expert_indices
-from esac_tpu_torch.ransac.scoring import soft_inlier_score, subsample_cells
+from esac_tpu_torch.ransac.scoring import (
+    draw_cells,
+    gather_cells,
+    soft_inlier_score,
+    subsample_cells,
+)
 from esac_tpu_torch.utils.precision import resolve_device
 
 
@@ -115,10 +126,15 @@ def _per_expert_winners(generators, coords_all, pixels, f, c, cfg, idx=None, sel
     rvecs, tvecs, fBM = _expert_hypotheses(generators, coords_all, pixels, f, c, cfg, idx)
     serve_stage("hypotheses")
     cells = subsample_cells(generators, coords_all, pixels, cfg.score_cells)
-    best_j, best_s, scores = _infer_winner(rvecs, tvecs, cells[0], cells[1], fBM, c, cfg)
-    scale = cells[2]
-    return (rvecs, tvecs, best_j, best_s * scale, None if scores is None else scores * scale,
-            cells)
+    return (rvecs, tvecs) + _map_winners(rvecs, tvecs, cells, fBM, c, cfg) + (cells,)
+
+
+def _map_winners(rvecs, tvecs, cells, f, c, cfg):
+    """Score and select on each map over the cells ``(coords_s, pixels_s,
+    scale)``: the per-map winner (B, K), its score and every score (None
+    under "fused_select"), the scores times ``scale``."""
+    best_j, best_s, scores = _infer_winner(rvecs, tvecs, cells[0], cells[1], f, c, cfg)
+    return best_j, best_s * cells[2], None if scores is None else scores * cells[2]
 
 
 def _prior_slot_winner(prior_rvecs, prior_tvecs, prior_valid, cells, f, c, cfg):
@@ -139,8 +155,95 @@ def _prior_slot_winner(prior_rvecs, prior_tvecs, prior_valid, cells, f, c, cfg):
     return pj, torch.gather(masked, -1, pj[..., None])[..., 0]
 
 
+# The RansacConfig fields the served chain after sampling reads (the key
+# of its CUDA graphs, with the inputs' shapes; ``registry.graphs``).
+_CHAIN_FIELDS = ("polish_iters", "scoring_impl", "score_chunk", "score_cells", "tau",
+                 "beta", "refine_iters")
+
+
+def _hypotheses_stage(cfg, x, _):
+    """The "hypotheses" stage of the served chain: gather and P3P + polish
+    of every set ``x["idx"]`` (B, K, nh, 4) on its map.  Returns the poses
+    (B, K, nh, 3)."""
+    B, K = x["coords"].shape[:2]
+    rvecs, tvecs = generate_hypotheses(None, x["coords"], x["pixels"],
+                                       x["f"][:, None].expand(B, K), x["c"], cfg, idx=x["idx"])
+    return {"rvecs": rvecs, "tvecs": tvecs}
+
+
+def _scoring_stage(cfg, x, h):
+    """The "scoring" stage: the cell subsample's gathers (``x["cells"]``,
+    drawn in sampling), score and select per map, the dropped slots and
+    the prior slot, the argmax over maps and the winner's takes."""
+    coords, c = x["coords"], x["c"]
+    B, K = coords.shape[:2]
+    fBK = x["f"][:, None].expand(B, K)
+    cells = gather_cells(coords, x["pixels"], x.get("cells"))
+    best_j, best_s, scores = _map_winners(h["rvecs"], h["tvecs"], cells, fBK, c, cfg)
+    live = x.get("live")
+    if live is not None:
+        best_s = torch.where(live, best_s, -torch.inf)
+        if scores is not None:
+            scores = torch.where(live[..., None], scores, -torch.inf)
+    ext_s = best_s
+    prior = "prior_rvec" in x
+    if prior:
+        p_rv, p_tv = x["prior_rvec"], x["prior_tvec"]
+        pj, ps = _prior_slot_winner(p_rv, p_tv, x["prior_valid"], cells, fBK, c, cfg)
+        if live is not None:
+            ps = torch.where(live, ps, -torch.inf)
+        is_prior = ps > best_s  # strict: the sampled slots come first
+        ext_s = torch.where(is_prior, ps, best_s)
+    mi = torch.argmax(ext_s, dim=1)
+    j = _take(best_j, mi)
+    if live is not None:
+        j = torch.where(_take(live, mi), j, torch.zeros_like(j))
+    rv0, tv0 = _take(_take(h["rvecs"], mi), j), _take(_take(h["tvecs"], mi), j)
+    s = {"mi": mi, "ext_s": ext_s, "scores": scores}
+    if prior:
+        s["hit"], s["slot"] = _take(is_prior, mi), _take(pj, mi)
+        rv0 = torch.where(s["hit"][:, None], _take(p_rv, s["slot"]), rv0)
+        tv0 = torch.where(s["hit"][:, None], _take(p_tv, s["slot"]), tv0)
+    s.update(rv0=rv0, tv0=tv0, coords_w=_take(coords, mi))
+    return s
+
+
+def _refine_stage(cfg, x, s):
+    """The "refine" stage: IRLS refinement of each frame's winner on its
+    map, then the result's few ops."""
+    coords, sel, mi = x["coords"], x.get("sel"), s["mi"]
+    B, N = coords.shape[0], coords.shape[2]
+    M = x["gating_logits"].shape[-1]
+    rvec, tvec = refine_soft_inliers(
+        s["rv0"], s["tv0"], s["coords_w"], broadcast_pixels(x["pixels"], (B,)), x["f"], x["c"],
+        cfg.tau, cfg.beta, iters=cfg.refine_iters)
+    best = _take(s["ext_s"], mi)
+    out = {
+        "rvec": rvec,
+        "tvec": tvec,
+        "expert": mi if sel is None else _take(sel, mi),
+        "gating_probs": torch.softmax(x["gating_logits"], dim=-1),
+        "inlier_frac": best / N,
+    }
+    if sel is not None:
+        out["experts_evaluated"] = torch.where(x["live"], sel, torch.full_like(sel, M))
+    if "hit" in s:
+        out["prior_hit"] = s["hit"]
+        out["prior_slot"] = torch.where(s["hit"], s["slot"],
+                                        torch.full_like(s["slot"], x["prior_rvec"].shape[1]))
+    if s["scores"] is None:
+        out["score"] = best
+    else:
+        out["scores"] = s["scores"]
+    return out
+
+
+_SERVE_CHAIN = (("hypotheses", _hypotheses_stage), ("scoring", _scoring_stage),
+                ("refine", _refine_stage))
+
+
 def _serve_frames(generators, gating_logits, coords, pixels, f, c, cfg, idx, device,
-                  routing=None, prior=None) -> dict:
+                  routing=None, prior=None, graphs=None) -> dict:
     """The inference path every serving entry shares.
 
     coords (B, K, N, 3): the K maps of each frame -- every expert's for the
@@ -150,70 +253,52 @@ def _serve_frames(generators, gating_logits, coords, pixels, f, c, cfg, idx, dev
     ``cfg.n_hyps * M // K`` hypotheses and a dropped pair scores ``-inf``
     (a frame whose every pair dropped refines hypothesis 0 of slot 0: the
     reference's flat-argmax failure output).  ``prior = (rvecs, tvecs,
-    valid)`` (B, P, 3), (B, P, 3), (B, P) adds the prior slot.  Marks the
+    valid)`` (B, P, 3), (B, P, 3), (B, P) adds the prior slot.
+
+    Sampling (the sets, then the cell subsample, from each frame's
+    generator) runs here; the chain after it, "hypotheses", "scoring" and
+    "refine" (:data:`_SERVE_CHAIN`), runs on the call's tensors, made
+    contiguous, through ``graphs.chain`` -- a bucket function's
+    ``registry.graphs.ServeGraphs``, which replays each stage as a CUDA
+    graph on the card -- or, without ``graphs``, eagerly.  Marks the
     "sampling" to "refine" stages of a traced dispatch
-    (``obs.serve_stage``); the marks change no result.
+    (``obs.serve_stage``) between the stages; the marks change no result.
     """
     dev = resolve_device(device)
-    coords, pixels, c = as_f32(coords, dev), as_f32(pixels, dev), as_f32(c, dev)
-    gating_logits = as_f32(gating_logits, dev)
+    coords = as_f32(coords, dev)
     B, K, N = coords.shape[:3]
-    M = gating_logits.shape[-1]
-    f = as_f32(f, dev).expand(B)
-    sel = live = None
+    x = {"coords": coords, "pixels": as_f32(pixels, dev), "f": as_f32(f, dev).expand(B),
+         "c": as_f32(c, dev), "gating_logits": as_f32(gating_logits, dev)}
+    M = x["gating_logits"].shape[-1]
     if routing is not None:
-        sel = torch.as_tensor(routing[0], device=dev).long()
-        live = torch.as_tensor(routing[1], device=dev).bool()
+        x["sel"] = torch.as_tensor(routing[0], device=dev).long()
+        x["live"] = torch.as_tensor(routing[1], device=dev).bool()
         cfg = dataclasses.replace(cfg, n_hyps=max(1, cfg.n_hyps * M // K))
-    rvecs, tvecs, best_j, best_s, scores, cells = _per_expert_winners(
-        generators, coords, pixels, f, c, cfg, idx=idx, sel=sel, M=M)
-    if live is not None:
-        best_s = torch.where(live, best_s, -torch.inf)
-        if scores is not None:
-            scores = torch.where(live[..., None], scores, -torch.inf)
-    ext_s = best_s
     if prior is not None:
-        p_rv, p_tv, p_valid = (as_f32(prior[0], dev), as_f32(prior[1], dev),
-                               torch.as_tensor(prior[2], device=dev).bool())
-        pj, ps = _prior_slot_winner(p_rv, p_tv, p_valid, cells, f[:, None].expand(B, K), c,
-                                    cfg)
-        if live is not None:
-            ps = torch.where(live, ps, -torch.inf)
-        is_prior = ps > best_s  # strict: the sampled slots come first
-        ext_s = torch.where(is_prior, ps, best_s)
-    mi = torch.argmax(ext_s, dim=1)
-    j = _take(best_j, mi)
-    if live is not None:
-        j = torch.where(_take(live, mi), j, torch.zeros_like(j))
-    rv0, tv0 = _take(_take(rvecs, mi), j), _take(_take(tvecs, mi), j)
-    if prior is not None:
-        hit, slot = _take(is_prior, mi), _take(pj, mi)
-        rv0 = torch.where(hit[:, None], _take(p_rv, slot), rv0)
-        tv0 = torch.where(hit[:, None], _take(p_tv, slot), tv0)
-    coords_w = _take(coords, mi)
-    serve_stage("scoring")
-    rvec, tvec = refine_soft_inliers(
-        rv0, tv0, coords_w, broadcast_pixels(pixels, (B,)), f, c,
-        cfg.tau, cfg.beta, iters=cfg.refine_iters)
-    serve_stage("refine")
-    best = _take(ext_s, mi)
-    out = {
-        "rvec": rvec,
-        "tvec": tvec,
-        "expert": mi if sel is None else _take(sel, mi),
-        "gating_probs": torch.softmax(gating_logits, dim=-1),
-        "inlier_frac": best / N,
-    }
-    if sel is not None:
-        out["experts_evaluated"] = torch.where(live, sel, torch.full_like(sel, M))
-    if prior is not None:
-        out["prior_hit"] = hit
-        out["prior_slot"] = torch.where(hit, slot, torch.full_like(slot, p_rv.shape[1]))
-    if scores is None:
-        out["score"] = best
-    else:
-        out["scores"] = scores
-    return out
+        x["prior_rvec"], x["prior_tvec"] = as_f32(prior[0], dev), as_f32(prior[1], dev)
+        x["prior_valid"] = torch.as_tensor(prior[2], device=dev).bool()
+    injected = idx is not None
+    if idx is None:
+        idx = (_expert_sets(generators, cfg.n_hyps, N, K) if routing is None
+               else _routed_sets(generators, cfg.n_hyps, N, M, x["sel"]))
+    x["idx"] = torch.as_tensor(idx, device=dev).long()
+    sub = draw_cells(generators, N, cfg.score_cells)  # after the sets, as in training
+    if sub is not None:
+        x["cells"] = sub.to(dev)
+    x = {k: v.contiguous() for k, v in x.items()}
+    serve_stage("sampling")
+    key = (injected,) + tuple(getattr(cfg, name) for name in _CHAIN_FIELDS)
+
+    def eager(stage, fn, prev, result=False):
+        return fn(x, prev)
+
+    got = None
+    with contextlib.nullcontext() if graphs is None else graphs.chain(x, key) as run:
+        for stage, fn in _SERVE_CHAIN:
+            got = (run or eager)(stage, functools.partial(fn, cfg), got,
+                                 result=stage == _SERVE_CHAIN[-1][0])
+            serve_stage(stage)
+    return got
 
 
 def _no_stage(name: str) -> None:
@@ -263,6 +348,7 @@ def esac_infer_frames(
     cfg: RansacConfig = RansacConfig(),
     idx=None,
     device=None,
+    graphs=None,
 ) -> dict:
     """B frames x M experts in one dispatch.
 
@@ -271,10 +357,12 @@ def esac_infer_frames(
     ``device``).  Returns per-frame 'rvec', 'tvec', 'expert',
     'gating_probs', 'inlier_frac' and 'scores' (B, M, n_hyps) -- or the
     winner's 'score' under "fused_select".  Selection is by consensus
-    score; the gate is reported, not used.
+    score; the gate is reported, not used.  ``graphs`` (a bucket
+    function's ``registry.graphs.ServeGraphs``; every serving entry takes
+    it) replays the chain after sampling as CUDA graphs on the card.
     """
     return _serve_frames(generators, gating_logits, coords_all, pixels, f, c, cfg, idx,
-                         device)
+                         device, graphs=graphs)
 
 
 def esac_infer(
@@ -311,6 +399,7 @@ def esac_infer_frames_prior(
     cfg: RansacConfig = RansacConfig(),
     idx=None,
     device=None,
+    graphs=None,
 ) -> dict:
     """:func:`esac_infer_frames` with a prior-hypothesis slot (counterpart
     of ``esac_infer_frames_prior``): each frame's P motion-prior poses
@@ -322,7 +411,8 @@ def esac_infer_frames_prior(
     it.  Extra outputs: 'prior_hit' (B,) and 'prior_slot' (B,), the winning
     prior or P when the sampled stream won."""
     return _serve_frames(generators, gating_logits, coords_all, pixels, f, c, cfg, idx,
-                         device, prior=(prior_rvecs, prior_tvecs, prior_valid))
+                         device, prior=(prior_rvecs, prior_tvecs, prior_valid),
+                         graphs=graphs)
 
 
 def esac_infer_prior(
@@ -444,6 +534,7 @@ def esac_infer_routed_frames(
     cfg: RansacConfig = RansacConfig(),
     idx=None,
     device=None,
+    graphs=None,
 ) -> dict:
     """The RANSAC stage of gating-first routed serving (counterpart of
     ``esac_infer_routed_frames``): gating_logits (B, M); coords_sel
@@ -460,7 +551,7 @@ def esac_infer_routed_frames(
     nothing dropped the result is :func:`esac_infer_frames`' bit for bit.
     """
     return _serve_frames(generators, gating_logits, coords_sel, pixels, f, c, cfg, idx,
-                         device, routing=(selected, kept))
+                         device, routing=(selected, kept), graphs=graphs)
 
 
 def esac_infer_routed_frames_prior(
@@ -478,6 +569,7 @@ def esac_infer_routed_frames_prior(
     cfg: RansacConfig = RansacConfig(),
     idx=None,
     device=None,
+    graphs=None,
 ) -> dict:
     """:func:`esac_infer_routed_frames` with the prior slot (counterpart of
     ``esac_infer_routed_frames_prior``): the P priors of each frame
@@ -487,7 +579,7 @@ def esac_infer_routed_frames_prior(
     bit for bit.  Extra outputs 'prior_hit' and 'prior_slot'."""
     return _serve_frames(generators, gating_logits, coords_sel, pixels, f, c, cfg, idx,
                          device, routing=(selected, kept),
-                         prior=(prior_rvecs, prior_tvecs, prior_valid))
+                         prior=(prior_rvecs, prior_tvecs, prior_valid), graphs=graphs)
 
 
 def esac_train_loss_frames(

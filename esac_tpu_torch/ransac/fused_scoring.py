@@ -42,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -303,6 +304,26 @@ def _launch_scores(op, buf, tau, beta, stream, lib=None) -> int:
         *_common_args(op, buf, tau, beta), _ptr(buf["out"]), stream)
 
 
+# Each thread's own launch tallies, beside the wrappers' process-wide
+# ``launches``: a CUDA graph capture (registry/graphs.py) records the
+# launches of its own thread, whatever other threads launch meanwhile.
+_THREAD = threading.local()
+
+
+def _launched(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel."""
+    wrapper.launches += 1
+    tally = _THREAD.__dict__.setdefault("tally", {})
+    tally[wrapper.__name__] = tally.get(wrapper.__name__, 0) + 1
+
+
+def thread_launches(wrappers) -> tuple[int, ...]:
+    """The calling thread's launches so far of each of ``wrappers``'
+    kernels (never reset: take differences)."""
+    tally = _THREAD.__dict__.get("tally", {})
+    return tuple(tally.get(w.__name__, 0) for w in wrappers)
+
+
 def _scores_forward(Rs, ts, coords, pixels, f, c, tau, beta, chunk):
     """The scoring kernel's launch on CUDA tensors, :func:`_scores_plain` on
     CPU tensors; no autograd."""
@@ -313,7 +334,7 @@ def _scores_forward(Rs, ts, coords, pixels, f, c, tau, beta, chunk):
     buf = _score_buffers(op, dev)
     with torch.cuda.device(dev):
         err = _launch_scores(op, buf, tau, beta, _stream(dev))
-    soft_inlier_scores_kernel.launches += 1
+    _launched(soft_inlier_scores_kernel)
     _check(err, "esac_soft_inlier_scores")
     return buf["out"].reshape(op["lead"] + (op["H"],))
 
@@ -427,7 +448,7 @@ def _select_forward(Rs, ts, coords, pixels, f, c, tau, beta):
     buf = _select_buffers(op, dev)
     with torch.cuda.device(dev):
         err = _launch_select(op, buf, tau, beta, _stream(dev))
-    soft_inlier_score_select.launches += 1
+    _launched(soft_inlier_score_select)
     _check(err, "esac_soft_inlier_select")
     lead = op["lead"]
     return (buf["best_idx"].long().reshape(lead), buf["best_score"].reshape(lead),

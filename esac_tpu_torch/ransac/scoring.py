@@ -44,28 +44,38 @@ def soft_inlier_weights(errors: torch.Tensor, tau: float, beta: float) -> torch.
     return torch.sigmoid(beta * (tau - errors))
 
 
-def subsample_cells(
-    generators: list[torch.Generator],
+def draw_cells(generators: list[torch.Generator], n_cells: int, n_sub: int):
+    """Each frame's random subset of ``n_sub`` of its ``n_cells`` cells for
+    subsampled scoring (``RansacConfig.score_cells``): one ``randperm`` a
+    generator, in frame order.  Returns (B, n_sub) int64 on the generators'
+    device, or None when ``n_sub`` is 0 or >= ``n_cells`` (every cell
+    scores)."""
+    if not n_sub or n_sub >= n_cells:
+        return None
+    return torch.stack([
+        torch.randperm(n_cells, generator=g, device=g.device)[:n_sub] for g in generators
+    ])
+
+
+def gather_cells(
     coords: torch.Tensor,
     pixels: torch.Tensor,
-    n_sub: int,
+    sub: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor, float]:
-    """Per-frame random cell subsets for subsampled scoring
-    (``RansacConfig.score_cells``), frames-major.
+    """The cells ``sub`` (B, n_sub) of :func:`draw_cells`, frames-major.
 
-    coords (B, ..., N, 3) with one generator per frame; pixels (N, 2)
-    shared or (B, N, 2).  Every expert of a frame gets the same cells, so
-    cross-expert scores stay comparable.  Returns (coords (B, ..., n_sub, 3),
-    pixels (B, n_sub, 2), scale = N / n_sub); with ``n_sub`` 0 or >= N the
-    inputs come back unchanged with scale 1.
+    coords (B, ..., N, 3); pixels (N, 2) shared or (B, N, 2).  Every expert
+    of a frame gets the same cells, so cross-expert scores stay comparable.
+    Returns (coords (B, ..., n_sub, 3), pixels (B, n_sub, 2), scale =
+    N / n_sub); with ``sub`` None the inputs come back unchanged with
+    scale 1.
     """
-    N = coords.shape[-2]
-    if not n_sub or n_sub >= N:
+    if sub is None:
         return coords, pixels, 1.0
-    B = coords.shape[0]
-    sub = torch.stack([
-        torch.randperm(N, generator=g, device=g.device)[:n_sub] for g in generators
-    ]).to(coords.device)  # (B, n_sub)
+    N = coords.shape[-2]
+    sub = sub.to(coords.device)
+    B = sub.shape[0]
+    n_sub = sub.shape[1]
     mid = coords.dim() - 3  # expert axes between frame and cell axes
     sub_c = sub.view((B,) + (1,) * mid + (n_sub, 1)).expand(coords.shape[:-2] + (n_sub, 3))
     px = pixels.expand((B,) + pixels.shape[-2:]) if pixels.dim() == 2 else pixels
@@ -74,3 +84,19 @@ def subsample_cells(
         torch.gather(px, 1, sub[..., None].expand(B, n_sub, 2)),
         N / n_sub,
     )
+
+
+def subsample_cells(
+    generators: list[torch.Generator],
+    coords: torch.Tensor,
+    pixels: torch.Tensor,
+    n_sub: int,
+) -> tuple[torch.Tensor, torch.Tensor, float]:
+    """Per-frame random cell subsets for subsampled scoring
+    (``RansacConfig.score_cells``): :func:`draw_cells` from one generator
+    per frame, then :func:`gather_cells`.  coords (B, ..., N, 3); pixels
+    (N, 2) shared or (B, N, 2).  Returns (coords (B, ..., n_sub, 3),
+    pixels (B, n_sub, 2), scale = N / n_sub); with ``n_sub`` 0 or >= N the
+    inputs come back unchanged with scale 1.
+    """
+    return gather_cells(coords, pixels, draw_cells(generators, coords.shape[-2], n_sub))

@@ -80,6 +80,8 @@ from esac_tpu_torch.ransac.kernel import as_f32, frame_generators
 from esac_tpu_torch.obs import MetricsRegistry
 from esac_tpu_torch.obs.trace import active_traces, serve_stage
 from esac_tpu_torch.registry.cache import DeviceWeightCache
+from esac_tpu_torch.registry.graphs import CAPTURES, REPLAYS, ServeGraphs
+from esac_tpu_torch.registry.graphs import HELP as GRAPH_HELP
 from esac_tpu_torch.registry.health import (
     ChecksumMismatchError,
     HealthPolicy,
@@ -142,12 +144,16 @@ def scene_forward(params: dict, imgs: torch.Tensor) -> tuple[torch.Tensor, torch
     return coords, params["gating"](imgs)
 
 
-def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
+def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None,
+                         graphs: ServeGraphs | None = None):
     """The full pipeline for a (preset, cfg) bucket: ``fn(params, batch)``
     -> per-frame result dict (see the module docstring).  Runs under
-    ``torch.inference_mode``; every tensor stays on ``device``."""
+    ``torch.inference_mode``; every tensor stays on ``device``.  The
+    function owns ``graphs`` (a new :class:`ServeGraphs` by default), the
+    cache of its RANSAC chain's CUDA graphs, as ``fn.graphs``."""
     dev = resolve_device(device)
     pixels = output_pixel_grid(preset.height, preset.width, preset.stride, device=dev)
+    graphs = ServeGraphs() if graphs is None else graphs
 
     def run(params: dict, batch: dict) -> dict:
         with torch.inference_mode():
@@ -160,10 +166,17 @@ def make_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, device=None):
                     params["f"].expand(B), params["c"])
             if "prior_rvec" in batch:
                 return esac_infer_frames_prior(*args, *_priors(batch), cfg,
-                                               idx=batch.get("idx"), device=dev)
-            return esac_infer_frames(*args, cfg, idx=batch.get("idx"), device=dev)
+                                               idx=batch.get("idx"), device=dev,
+                                               graphs=graphs)
+            return esac_infer_frames(*args, cfg, idx=batch.get("idx"), device=dev,
+                                     graphs=graphs)
 
-    return count_signatures(run)
+    return _owning(count_signatures(run), graphs)
+
+
+def _owning(fn, graphs: ServeGraphs):
+    fn.graphs = graphs
+    return fn
 
 
 def _priors(batch: dict) -> tuple:
@@ -171,12 +184,13 @@ def _priors(batch: dict) -> tuple:
 
 
 def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
-                                device=None):
+                                device=None, graphs: ServeGraphs | None = None):
     """Gating-first routed serving for a (preset, cfg, k) bucket (the
     module docstring): ``fn(params, batch)`` -> per-frame result dict, with
     'experts_evaluated' (B, k) (sentinel M where capacity dropped the
     pair).  Raises ``ManifestError`` for k outside 1..M, or k < M on an
-    ungated preset (every frame would ride one arbitrary subset)."""
+    ungated preset (every frame would ride one arbitrary subset).  Owns
+    ``graphs`` as :func:`make_scene_bucket_fn` does."""
     M = preset.num_experts
     if not 1 <= k <= M:
         raise ManifestError(f"routed top-k {k} outside 1..{M}")
@@ -187,6 +201,7 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
     cap = routed_serve_capacity(cfg, k, M)
     dev = resolve_device(device)
     pixels = output_pixel_grid(preset.height, preset.width, preset.stride, device=dev)
+    graphs = ServeGraphs() if graphs is None else graphs
 
     def run(params: dict, batch: dict) -> dict:
         with torch.inference_mode():
@@ -213,10 +228,12 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
                     pixels, params["f"].expand(B), params["c"])
             if "prior_rvec" in batch:
                 return esac_infer_routed_frames_prior(*args, *_priors(batch), cfg,
-                                                      idx=batch.get("idx"), device=dev)
-            return esac_infer_routed_frames(*args, cfg, idx=batch.get("idx"), device=dev)
+                                                      idx=batch.get("idx"), device=dev,
+                                                      graphs=graphs)
+            return esac_infer_routed_frames(*args, cfg, idx=batch.get("idx"), device=dev,
+                                            graphs=graphs)
 
-    return count_signatures(run)
+    return _owning(count_signatures(run), graphs)
 
 
 # ---------------------------------------------------------------- loading
@@ -505,6 +522,9 @@ class SceneRegistry:
             "registry_health_events_total",
             "breaker/canary events by kind (trips, rollbacks, promotes)",
         )
+        # Every bucket function's graph cache counts into these.
+        self._m_graph_captures = self.obs.counter(CAPTURES, GRAPH_HELP[CAPTURES])
+        self._m_graph_replays = self.obs.counter(REPLAYS, GRAPH_HELP[REPLAYS])
         self.obs.register_collector("scene_health",
                                     self._health_collector)
         self.cache.bind_obs(self.obs)
@@ -547,10 +567,12 @@ class SceneRegistry:
             if fn is None:
                 cfg = entry.ransac if n_hyps is None else \
                     dataclasses.replace(entry.ransac, n_hyps=n_hyps)
+                graphs = ServeGraphs(self._m_graph_captures, self._m_graph_replays)
                 fn = (
-                    make_scene_bucket_fn(entry.preset, cfg, self.device)
+                    make_scene_bucket_fn(entry.preset, cfg, self.device, graphs)
                     if route_k is None
-                    else make_routed_scene_bucket_fn(entry.preset, cfg, route_k, self.device)
+                    else make_routed_scene_bucket_fn(entry.preset, cfg, route_k, self.device,
+                                                     graphs)
                 )
                 self._fns[key] = fn
             return fn
@@ -992,6 +1014,8 @@ class SceneRegistry:
         metrics.register(self._m_probe_frames)
         metrics.register(self._m_bad_frames)
         metrics.register(self._m_health_events)
+        metrics.register(self._m_graph_captures)
+        metrics.register(self._m_graph_replays)
         metrics.register_collector("scene_health", self._health_collector)
         self.cache.bind_obs(metrics)
         if self.host_tier is not None:
@@ -1085,9 +1109,11 @@ class SceneRegistry:
     def prewarm_programs(self, scene_id: str, frame_buckets,
                          route_ks=(None,), n_hyps_overrides=(None,),
                          prior_slots: int = 0) -> int:
-        """Run (once, on zero frames) every (K, n_hyps, frame-bucket) bucket
-        function a scene's traffic -- including an SLO degradation ladder
-        (``SLOPolicy.degrade_route_k``) -- can reach, OFF the hot path, so
+        """Run (on zero frames; once, and on the card twice, so that the
+        second call captures the chain's CUDA graphs) every (K, n_hyps,
+        frame-bucket) bucket function a scene's traffic -- including an SLO
+        degradation ladder (``SLOPolicy.degrade_route_k``) -- can reach, OFF
+        the hot path, so
         the first dispatch of each shape (cuDNN's algorithm choice, the
         allocator's growth) does not land on a request or look like a
         stall to the watchdog.  ``n_hyps_overrides`` runs hypothesis-budget
@@ -1100,18 +1126,22 @@ class SceneRegistry:
         entry = self.manifest.resolve(scene_id)
         params = self.cache.get(entry)
         H, W = entry.preset.height, entry.preset.width
+        # On the card a second call captures the RANSAC chain's CUDA graphs
+        # (registry/graphs.py), so no served dispatch pays for a capture.
+        calls = 2 if self.device.type == "cuda" else 1
         for k, nh in itertools.product(route_ks, n_hyps_overrides):
             fn = self._fn_for(entry, k, nh)
             for bucket in sorted(set(frame_buckets)):
                 B = max(int(bucket), MIN_LANES)
                 batch = {"seed": np.zeros(B, np.int64),
                          "image": np.zeros((B, H, W, 3), np.float32)}
-                fn(params, batch)
-                if prior_slots > 0:
-                    fn(params, dict(batch,
-                                    prior_rvec=np.zeros((B, prior_slots, 3), np.float32),
-                                    prior_tvec=np.zeros((B, prior_slots, 3), np.float32),
-                                    prior_valid=np.zeros((B, prior_slots), bool)))
+                prior = dict(batch, prior_rvec=np.zeros((B, prior_slots, 3), np.float32),
+                             prior_tvec=np.zeros((B, prior_slots, 3), np.float32),
+                             prior_valid=np.zeros((B, prior_slots), bool))
+                for _ in range(calls):
+                    fn(params, batch)
+                    if prior_slots > 0:
+                        fn(params, prior)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.compile_cache_size()

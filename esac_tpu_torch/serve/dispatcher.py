@@ -81,7 +81,8 @@ points (admitted -> coalesced -> staged -> dispatched -> device -> sliced
 one synchronization -- zero added syncs -- and per-stage durations land in
 the ``serve_stage_seconds`` histogram at ``_finish``.  A traced dispatch
 also nests the stages of its bucket call inside ``dispatched``
-(``dispatched.<stage>`` on the host, ``gpu.<stage>`` on the card; see
+(``dispatched.<stage>`` on the host, ``gpu.<stage>`` on the card,
+``graph.<stage>`` where a stage replayed as a CUDA graph; see
 ``obs.trace``), and the worker's waits, the staging and the readback run
 inside host-only profiler ranges (``esac.wait_work``, ``esac.hold``,
 ``esac.staging``, ``esac.to_host``, ``esac.<stage>``).  Tracing covers
@@ -727,7 +728,7 @@ class MicroBatchDispatcher:
         t = self._clock()
         trace.stamp("sliced", t)
         if clock.marked():
-            trace.root.nest(clock.host_stages() + clock.device_stages())
+            trace.root.nest(clock.stages())
         trace.finish("served", t)
 
     def _publish_bulk_trace(self, trace: Trace) -> None:
@@ -1199,7 +1200,7 @@ class MicroBatchDispatcher:
         t_done = self._clock()
         self._stamp(reqs, "device", t_done)
         if clock is not None and clock.marked():
-            self._nest(reqs, clock.host_stages() + clock.device_stages())
+            self._nest(reqs, clock.stages())
         with self._range("to_host", traced):
             host = self._to_host(out)
         return host, bucket, n_valid, t_done

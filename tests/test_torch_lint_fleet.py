@@ -55,6 +55,12 @@ LOCK_GRAPH_DIFFERENCES: dict = {
             "held; a JAX dispatch is one compiled call that gives up the GIL "
             "once and needs no gate.  Taken only inside the gate's own methods: "
             "no edge.",
+        "ServeGraphs._lock":
+            "registry/graphs.py: a bucket function's CUDA graphs of the RANSAC "
+            "chain share static input buffers and one memory pool, so one call's "
+            "copy-in, replays and clone-out hold the lock; a JAX bucket function "
+            "is one compiled call with no such state.  Held over no other lock "
+            "(the cache's counters advance after it is released): no edge.",
     },
 }
 TAXONOMY_DIFFERENCES: dict = {}
@@ -282,7 +288,7 @@ def test_lock_graph_matches_the_jax_graph():
     port_edges = {(e["src"], e["dst"], tuple(e["via"])) for e in port["edges"]}
     jax_edges = {(e["src"], e["dst"], tuple(e["via"])) for e in jax["edges"]}
     assert port_edges ^ jax_edges == set(LOCK_GRAPH_DIFFERENCES.get("edges", {}))
-    assert len(port["nodes"]) == 21 and len(port["edges"]) == 10
+    assert len(port["nodes"]) == 22 and len(port["edges"]) == 10
 
 
 def _as_jax(record):
