@@ -22,6 +22,13 @@ layer of ``models/expert.py`` and ``models/gating.py`` as the architecture
 is published (SAME padding, stride-2 stages); biases, ReLUs and the pool
 are left out.  At 480 x 640 with the ``ref`` widths an expert image is
 116.62 GFLOP and a gating image 7.92 GFLOP.
+
+Gating-first routed serving (a configuration that names ``serve_topk``
+K < M) counts the (frame, expert) pairs routing selects: K expert CNNs
+and the gating a frame, and K problems of n_hyps M // K hypotheses each,
+not the capacity slots the program pads; so a program that stops
+convolving empty slots reads higher on its roofline.  At K = M every
+count is the dense one.
 """
 
 from __future__ import annotations
@@ -93,10 +100,23 @@ def gating_flops(height: int, width: int, channels, num_experts: int) -> float:
     return 2.0 * macs
 
 
+def served_experts(cfg: dict) -> int:
+    """K, the experts that serve a frame: ``serve_topk`` where a
+    configuration names one, else every expert."""
+    return cfg.get("serve_topk") or cfg["num_experts"]
+
+
+def hyps_per_expert(cfg: dict) -> int:
+    """Hypotheses each served expert draws: the frame's budget of M x
+    n_hyps spread over its K experts (``n_hyps`` at K = M)."""
+    return max(1, cfg["n_hyps"] * cfg["num_experts"] // served_experts(cfg))
+
+
 def cnn_flops_per_frame(cfg: dict) -> float:
-    """Every expert's CNN and the gating CNN (gated configurations) over one
-    frame of a configuration file's sizes."""
-    per = cfg["num_experts"] * expert_flops(
+    """The CNN of every expert that serves a frame, and the gating CNN
+    (gated configurations), over one frame of a configuration file's
+    sizes."""
+    per = served_experts(cfg) * expert_flops(
         cfg["height"], cfg["width"], cfg["stem_channels"], cfg["head_channels"],
         cfg["head_depth"])
     if cfg["gated"]:
@@ -110,21 +130,21 @@ def n_cells(cfg: dict) -> int:
 
 
 def score_pairs_per_frame(cfg: dict) -> int:
-    """(hypothesis, cell) pairs one frame scores: every expert's hypotheses
-    over every cell of its map."""
-    return cfg["num_experts"] * cfg["n_hyps"] * n_cells(cfg)
+    """(hypothesis, cell) pairs one frame scores: every served expert's
+    hypotheses over every cell of its map."""
+    return served_experts(cfg) * hyps_per_expert(cfg) * n_cells(cfg)
 
 
 def score_bytes(cfg: dict, frames: int) -> int:
     """Bytes the score-and-select pass needs for ``frames`` frames, each
-    input read once and each output written once: per (frame, expert)
-    problem its poses (a 3 x 3 rotation and a translation, float32, a
-    hypothesis), its map (float32 x 3 a cell), its focal and its winner
-    (an int32 index and a float32 score); the shared pixel grid and the
-    principal point once."""
-    problems = frames * cfg["num_experts"]
+    input read once and each output written once: per (frame, served
+    expert) problem its poses (a 3 x 3 rotation and a translation,
+    float32, a hypothesis), its map (float32 x 3 a cell), its focal and
+    its winner (an int32 index and a float32 score); the shared pixel grid
+    and the principal point once."""
+    problems = frames * served_experts(cfg)
     n = n_cells(cfg)
-    return (problems * cfg["n_hyps"] * 48 + problems * n * 12 + n * 8 + problems * 4
+    return (problems * hyps_per_expert(cfg) * 48 + problems * n * 12 + n * 8 + problems * 4
             + 8 + problems * 8)
 
 

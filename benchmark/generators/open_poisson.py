@@ -92,6 +92,8 @@ def run(ctx) -> dict:
         collect(pending, stamps, t_open + ctx.seconds + SETTLE_S)
         ctx.profile_stop(t_end=max(stamps.values()) if stamps else None)
         dispatches = _dispatches(disp) - n0
+        # (bucket, frames) of the window's dispatches, the newest last.
+        rode = list(disp.dispatch_log)[-dispatches:] if dispatches else []
     finally:
         disp.close()
 
@@ -114,6 +116,7 @@ def run(ctx) -> dict:
                        "latency_p95_ms": 1e3 * reduce.percentile(lat, 95)},
         "attempted": len(recs), "failed": failed, "served": served, "latencies": lat,
         "served_frames": len(served), "dispatches": dispatches, "spans": spans,
+        "bucket_lanes": sum(b for b, _ in rode), "bucket_frames": sum(n for _, n in rode),
         "window_s": ctx.seconds, "profile_frames": len(in_prof), "profile_lanes": None,
         "generator": {"requests": len(recs), "rate_per_s": rate,
                       "late_p50_ms": 1e3 * reduce.percentile(late, 50),

@@ -7,7 +7,8 @@ nothing of the program.
 - Correspondence sets: each frame's ``torch.Generator`` on the device,
   seeded with the frame's request seed, draws (M, n_hyps, 4) cell indices
   with ``torch.randint`` -- the serving contract of the seed a request
-  carries.
+  carries (gating-first routed: (M, n_hyps M // K, 4), the rows of the K
+  selected experts kept; :func:`serve_frames`).
 - Minimal solve: Grunert's P3P quartic on the first three points (the
   coefficients of Haralick et al. 1994), its roots as eigenvalues of the
   companion matrix, each root's rigid fit by SVD (Kabsch), the fourth
@@ -15,7 +16,7 @@ nothing of the program.
   convergence -- float64.
 - Score: the soft-inlier count sum(sigmoid(beta (tau - err))) over every
   cell, a 1000 px penalty behind 0.1 m; the winner is the first maximum
-  over all experts' hypotheses.
+  over all served experts' hypotheses.
 - Refinement: ``refine_iters`` rounds of soft-inlier-weighted Gauss-Newton
   from the winner, float64.
 
@@ -33,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from benchmark.counts import hyps_per_expert, served_experts
 from benchmark.scene import expert_layers, gating_layers
 
 MIN_DEPTH = 0.1
@@ -249,30 +251,50 @@ def refine(R, t, X, x, f, c, tau, beta, iters):
     return R, t
 
 
+def top_experts(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Each frame's ``k`` experts of largest logit (B, k): the order of a
+    stable descending sort (equal logits by ascending id), then sorted
+    ascending by expert id."""
+    top = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+    return torch.sort(top, dim=-1).values
+
+
 def serve_frames(cfg: dict, experts: dict, gating: dict | None, images: torch.Tensor,
                  seeds, precision: str = "float32") -> dict:
     """The reference's answer for a block of frames: gating probabilities,
     every expert's best score, the winning expert and score, and the
-    refined pose (R, t), float64."""
+    refined pose (R, t), float64.
+
+    Gating-first routed (``serve_topk`` K < M): the top K of the float32
+    gating logits serve the frame, each with nh = n_hyps M // K
+    hypotheses, the rows of their ids kept from the frame's (M, nh, 4)
+    sets; the winner is the first maximum over the K x nh scores, and an
+    expert outside the top K has best score -inf.  Capacity drops, which
+    depend on what else rode a dispatch, are not modelled.  At K = M this
+    is the dense answer."""
     dev = images.device
-    M, H = cfg["num_experts"], cfg["n_hyps"]
+    M, K, H = cfg["num_experts"], served_experts(cfg), hyps_per_expert(cfg)
     f, (cx, cy) = 525.0 * cfg["width"] / 640.0, (cfg["width"] / 2.0, cfg["height"] / 2.0)
     c = torch.tensor([cx, cy], dtype=torch.float64, device=dev)
     pix = pixel_grid(cfg, dev)
     logits = gating_logits(cfg, gating, images, precision)
     X = expert_coords(cfg, experts, images, precision).double()       # (B, M, N, 3)
     B, N = X.shape[0], X.shape[2]
-    idx = correspondence_sets(seeds, M, H, N, dev)
-    X4 = torch.take_along_dim(X[:, :, None], idx[..., None], -2)      # (B, M, H, 4, 3)
+    rows = torch.arange(B, device=dev)
+    sel = top_experts(logits, K)                                       # (B, K)
+    X = X[rows[:, None], sel]                                          # (B, K, N, 3)
+    idx = correspondence_sets(seeds, M, H, N, dev)[rows[:, None], sel]
+    X4 = torch.take_along_dim(X[:, :, None], idx[..., None], -2)      # (B, K, H, 4, 3)
     x4 = pix[idx]
     R, t = p3p_grunert(X4, x4, f, c)
-    s = scores(R, t, X, pix, f, c, cfg["tau"], cfg["beta"], precision)  # (B, M, H)
+    s = scores(R, t, X, pix, f, c, cfg["tau"], cfg["beta"], precision)  # (B, K, H)
     s = torch.nan_to_num(s, nan=-torch.inf)
-    flat = s.reshape(B, M * H).argmax(-1)
-    m, jh = flat // H, flat % H
-    rows = torch.arange(B, device=dev)
-    R0, t0 = R[rows, m, jh], t[rows, m, jh]
-    Rr, tr = refine(R0, t0, X[rows, m], pix, f, c, cfg["tau"], cfg["beta"],
+    flat = s.reshape(B, K * H).argmax(-1)
+    k, jh = flat // H, flat % H
+    R0, t0 = R[rows, k, jh], t[rows, k, jh]
+    Rr, tr = refine(R0, t0, X[rows, k], pix, f, c, cfg["tau"], cfg["beta"],
                     cfg["refine_iters"])
-    return {"gating_probs": torch.softmax(logits.double(), -1), "expert": m,
-            "best": s.amax(-1), "score": s.reshape(B, -1).amax(-1), "R": Rr, "t": tr}
+    best = torch.full((B, M), -torch.inf, dtype=s.dtype, device=dev)
+    return {"gating_probs": torch.softmax(logits.double(), -1), "expert": sel[rows, k],
+            "best": best.scatter(1, sel, s.amax(-1)), "score": s.reshape(B, -1).amax(-1),
+            "R": Rr, "t": tr}

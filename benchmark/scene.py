@@ -31,6 +31,18 @@ optimum.  The cost of every layer is what it is for any weights.
 
 Everything is drawn from one ``torch.Generator`` on the device, in one
 large call per network, in float32 (the type the program stores).
+
+A configuration whose ``scene`` block names ``"gating": "rooms"`` gets a
+gating net that routes by room, as a trained one does (gating-first
+routed serving scores only the experts it selects).  A frame's image
+coordinates say nothing of its room (each is divided by its own room's
+extent, and their per-frame means swing over most of [0, 1]), so every
+frame of room r carries a sign: its top band of ``2 ** stages`` rows
+holds -(r + 1) / 16 in every channel, below any coordinate (>= 0).  The
+gating reads the sign on the one row of its sampling grid inside the
+band (:func:`_routing_gating`); the experts read the band as outliers
+(their first ReLU zeroes it) and every other cell as before.  Without
+the key nothing of the weights or the frames changes.
 """
 
 from __future__ import annotations
@@ -69,6 +81,68 @@ def gating_layers(cfg: dict) -> list[tuple]:
         cin = ch
     hidden = max(4 * cfg["num_experts"], 64)
     return out + [("dense0", cin, hidden, 0, 0), ("dense1", hidden, cfg["num_experts"], 0, 0)]
+
+
+def routes_by_room(cfg: dict) -> bool:
+    """Whether the configuration's gating routes by room (module docstring)."""
+    return cfg["scene"].get("gating") == "rooms"
+
+
+# Step between two rooms' signs (a power of two: every sign, and every
+# value the routing gating computes from it, is exact in bfloat16), and
+# the logit between a frame's consecutive choices of expert.
+SIGN_STEP = 1.0 / 16.0
+ROUTING_MARGIN = 4.0
+
+
+def sign_band(cfg: dict) -> int:
+    """Rows of the sign band: one stride-2 stage of the gating halves the
+    grid it samples, so after all of them row 0 is the only sampled row
+    in the band."""
+    return 2 ** len(cfg["gating_channels"])
+
+
+def _routing_gating(cfg: dict, device) -> dict:
+    """The gating state dict that routes a frame of room r to experts r,
+    r + 1, r + 2, ... (mod M) in that order, ``ROUTING_MARGIN`` logits
+    apart, whatever the coordinates.
+
+    Only centre taps are non-zero, so each convolution reads the pixel its
+    stride lands on.  With s = -pixel / SIGN_STEP (r + 1 on a sign, <= 0 on
+    a coordinate): conv 0 gives the ramps SIGN_STEP relu(s - k), k = 0 ..
+    M + 1; conv 1 the hats ramp(m) - 2 ramp(m + 1) + ramp(m + 2), which are
+    SIGN_STEP where m = r and 0 elsewhere; every later convolution passes
+    the M hats on.  The pool averages them over the sampled grid, of which
+    the band holds one row; ``dense0`` scales that back to a one-hot of the
+    room and ``dense1`` ranks the experts.  Every conv output is exact in
+    bfloat16; the pool's one rounding scales a frame's logits by one
+    factor, which no ranking can flip."""
+    M, ch = cfg["num_experts"], cfg["gating_channels"]
+    if ch[0] < M + 2 or min(ch) < M:
+        raise ValueError(f"a gating that routes {M} rooms needs {M + 2} channels in its "
+                         f"first stage and {M} in every other, not {ch}")
+    rows = cfg["height"]
+    for _ in ch:
+        rows = -(-rows // 2)
+    gating = {}
+    for key, cin, cout, k, _ in gating_layers(cfg):
+        w = torch.zeros((cout, cin, k, k) if k else (cout, cin), device=device)
+        b = torch.zeros((cout,), device=device)
+        if key == "convs.0":
+            w[: M + 2, 0, 1, 1] = -1.0
+            b[: M + 2] = -SIGN_STEP * torch.arange(M + 2, device=device, dtype=torch.float32)
+        elif key == "convs.1":
+            m = torch.arange(M, device=device)
+            w[m, m, 1, 1], w[m, m + 1, 1, 1], w[m, m + 2, 1, 1] = 1.0, -2.0, 1.0
+        elif k:
+            w[torch.arange(M), torch.arange(M), 1, 1] = 1.0
+        elif key == "dense0":
+            w[torch.arange(M), torch.arange(M)] = rows / SIGN_STEP
+        else:
+            m = torch.arange(M, device=device)
+            w[:, :M] = ROUTING_MARGIN * (M - 1 - (m[:, None] - m[None, :]) % M).float()
+        gating[f"{key}.weight"], gating[f"{key}.bias"] = w, b
+    return gating
 
 
 def room_extents(cfg: dict, device) -> torch.Tensor:
@@ -167,7 +241,7 @@ def make_weights(cfg: dict, seed: int, device) -> tuple[dict, dict | None]:
     out, as a trained head's do).  The convolutions the program runs in
     bfloat16 get bfloat16 weights and the coordinate head and the gating
     net's dense layers, which it runs in float32, float32 ones.  The gating
-    net is He-initialized."""
+    net is He-initialized, or routes by room (:func:`_routing_gating`)."""
     M, eps = cfg["num_experts"], cfg["scene"]["weight_noise"]
     g = torch.Generator(device=device).manual_seed(int(seed) % (2 ** 63))
     layers = expert_layers(cfg)
@@ -188,6 +262,8 @@ def make_weights(cfg: dict, seed: int, device) -> tuple[dict, dict | None]:
         experts[f"{key}.bias"] = torch.zeros((M, cout), device=device)
     if not cfg["gated"]:
         return experts, None
+    if routes_by_room(cfg):
+        return experts, _routing_gating(cfg, device)
     glayers = gating_layers(cfg)
     gsizes = [cout * cin * max(k, 1) ** 2 for _, cin, cout, k, _ in glayers]
     gnoise = torch.randn((sum(gsizes),), generator=g, device=device)
@@ -225,7 +301,9 @@ def make_frames(cfg: dict, seed: int, n: int, device) -> dict:
     scene-coordinate rendering of a camera inside a room drawn from the
     seed, with its room and its scene -> camera pose (R (n, 3, 3),
     t (n, 3)).  Pixel values are made in the type the CNNs take them in,
-    as 8-bit camera images are: quantized, the same for every reader."""
+    as 8-bit camera images are: quantized, the same for every reader.  A
+    scene that routes by room signs each frame's top band (module
+    docstring)."""
     H, W, s = cfg["height"], cfg["width"], cfg["stride"]
     g = torch.Generator(device=device).manual_seed((int(seed) + 1) % (2 ** 63))
     u = torch.rand((n, 7), generator=g, device=device, dtype=torch.float64)
@@ -251,6 +329,8 @@ def make_frames(cfg: dict, seed: int, n: int, device) -> dict:
         step = torch.where(d > 0, hi, torch.where(d < 0, lo, torch.inf)).amin(-1)
         X = center[i] + step[..., None] * d
         images[i] = _served((X / e[i]).clamp(0.0, 1.0), cfg)
+    if routes_by_room(cfg):
+        images[:, : sign_band(cfg)] = -SIGN_STEP * (room + 1).float()[:, None, None, None]
     R = R_wc.transpose(-1, -2)
     t = -(R @ center[..., None])[..., 0]
     return {"images": images, "room": room, "R": R.float(), "t": t.float()}

@@ -1,7 +1,12 @@
 """The system under test, built from a configuration file: a registry scene
 whose checkpoint is written from the seed's weights, a ``SceneRegistry`` on
 the card with its bucket functions warmed, and its dispatcher.  This is the
-one module of the benchmark that imports the program."""
+one module of the benchmark that imports the program.
+
+The scene's ``RansacConfig`` takes every field of it that the
+configuration file names, and the mix's frame buckets; so a file that
+names ``serve_topk`` (and ``serve_capacity``) is served gating-first
+routed, by the registry's own choice for such a scene."""
 
 from __future__ import annotations
 
@@ -12,6 +17,15 @@ import pathlib
 import torch
 
 from benchmark import scene
+
+
+def ransac_config(cfg: dict, buckets):
+    """The scene's ``RansacConfig``: every field the configuration names,
+    and ``buckets`` as its frame buckets."""
+    from esac_tpu_torch.ransac.config import RansacConfig
+
+    named = {f.name: cfg[f.name] for f in dataclasses.fields(RansacConfig) if f.name in cfg}
+    return RansacConfig(**dict(named, frame_buckets=tuple(buckets)))
 
 
 @dataclasses.dataclass
@@ -52,10 +66,7 @@ def build(cfg: dict, mix: dict, seed: int, device, ckpt_dir: pathlib.Path) -> Sy
         stem_channels=tuple(cfg["stem_channels"]), head_channels=cfg["head_channels"],
         head_depth=cfg["head_depth"], gating_channels=tuple(cfg["gating_channels"]),
         compute_dtype=cfg["compute_dtype"], gated=cfg["gated"], stride=cfg["stride"])
-    ransac = RansacConfig(
-        n_hyps=cfg["n_hyps"], tau=cfg["tau"], beta=cfg["beta"],
-        refine_iters=cfg["refine_iters"], polish_iters=cfg["polish_iters"],
-        scoring_impl=cfg["scoring_impl"], frame_buckets=buckets)
+    ransac = ransac_config(cfg, buckets)
     manifest = SceneManifest()
     scene_id = cfg["name"]
     manifest.add(SceneEntry(

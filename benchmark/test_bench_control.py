@@ -28,7 +28,12 @@ def _half_batch(out):
 @pytest.mark.parametrize("workload", ["esac7_bulk_b16", "esac7_open_single"])
 @pytest.mark.parametrize("fault", [None, _shift_pose, _half_batch])
 def test_faults_come_out_not_correct(tiny_cell, workload, fault):
+    """The open cell offers 200 requests a second, so that dispatches
+    coalesce several frames whatever the host's speed (a planted fault
+    that leaves half of a batch out has nothing to leave out of a
+    dispatch of one frame)."""
     wl = tiny_cell(workload, compute_dtype="float32")
+    wl.cell = dict(wl.cell, rate_per_s=200.0)
     res = harness.run_cell(wl, 987654321, 1.0, False, "cpu", time.perf_counter(),
                            fault=fault)
     assert res["correct"] is (fault is None), res["compared"]

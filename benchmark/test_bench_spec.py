@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` against the benchmark contract, and every piece found
 by name: configurations, traffic mixes, cells, generators, metric readers."""
 
+import dataclasses
 import json
 import re
 
@@ -11,6 +12,13 @@ from benchmark import compare, spec
 BENCH = json.loads((spec.REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# Keys of a configuration file that the harness reads or that describe the
+# configuration; every other key is a ``RansacConfig`` field.
+HARNESS_KEYS = {
+    "name", "source", "what", "published", "deployment", "reduced", "changed", "assumed",
+    "assumed_why", "shares", "scene", "limits", "height", "width", "stride", "num_experts",
+    "gated", "stem_channels", "head_channels", "head_depth", "gating_channels",
+    "compute_dtype"}
 
 
 def test_top_level_keys_and_limits():
@@ -60,6 +68,9 @@ def test_every_cell_reports_what_the_contract_asks():
 
 
 def test_configs_hold_the_ref_widths_and_name_their_changes():
+    from esac_tpu_torch.ransac.config import RansacConfig
+
+    fields = {f.name for f in dataclasses.fields(RansacConfig)}
     for c in BENCH["configs"]:
         cfg = json.loads((spec.REPO / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
@@ -72,6 +83,14 @@ def test_configs_hold_the_ref_widths_and_name_their_changes():
         assert set(cfg["changed"]) == set(cfg["reduced"])
         assert {"stem_channels", "head_channels", "gating_channels"} <= set(cfg["assumed"])
         assert set(cfg["limits"]) == set(compare.NUMBERS)
+        # Every other key is a RansacConfig field: a misspelt one would
+        # otherwise be dropped without a word (a dense serve for a routed
+        # configuration).
+        assert set(cfg) <= HARNESS_KEYS | fields, c["name"]
+        assert set(cfg["scene"]) <= {"room_extents_m", "weight_noise", "gating"}
+        assert cfg["scene"].get("gating", "rooms") == "rooms"
+        if cfg.get("serve_topk"):
+            assert cfg["gated"] and 1 <= cfg["serve_topk"] < cfg["num_experts"]
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
