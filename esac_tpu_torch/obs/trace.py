@@ -43,6 +43,18 @@ boundary (:func:`serve_stage`):
   ``refine``     -- IRLS refinement of the winner and the result's few ops
   ``outputs``    -- the health probe, up to the ``dispatched`` stamp
 
+A gating-first routed call (``registry.serving.make_routed_scene_bucket_fn``
+with top-k below M) has one stage more, :data:`ROUTE_STAGE`, between
+``resolve`` and ``cnn``: the gating CNN, the top-k and the slot
+assignment; its ``cnn`` is then the expert blocks alone.  Such a call also
+announces its routing (:func:`serve_routing`), and once the dispatch's
+``experts_evaluated`` reached the host the dispatcher counts it
+(:func:`route_counts`): ``route.pairs`` (the real frames' selected pairs
+that capacity kept), ``route.dropped`` (those it dropped) and
+``route.slots`` (the expert-CNN images convolved), nested on every traced
+request of the dispatch as counts, not seconds (:func:`is_count`), and
+added to the routing counter the call named.
+
 They land on the chain as nested entries: ``dispatched.<stage>`` (host
 seconds, the dispatcher's clock) and, on the card, ``gpu.<stage>`` (the
 device's seconds from reaching one boundary to reaching the next, idle
@@ -97,6 +109,20 @@ TERMINAL_STAGES = ("served", "degraded", "shed", "expired", "failed")
 # The stages of a traced bucket call, nested inside ``dispatched``, in order.
 SERVE_STAGES = ("resolve", "cnn", "sampling", "hypotheses", "scoring",
                 "refine", "outputs")
+# The routed call's stage between "resolve" and "cnn".
+ROUTE_STAGE = "route"
+# The profiler range that opens as each stage is marked.
+_NEXT_RANGE = dict(zip(SERVE_STAGES, SERVE_STAGES[1:]), **{ROUTE_STAGE: "cnn"})
+# The counts of a traced routed dispatch (module docstring), and the
+# prefix of their nested keys.
+ROUTE_COUNTS = ("pairs", "dropped", "slots")
+_COUNT_PREFIX = ROUTE_STAGE + "."
+
+
+def is_count(key: str) -> bool:
+    """Whether a nested key of :meth:`SpanChain.durations` is a count
+    (``route.<count>``) rather than seconds."""
+    return key.startswith(_COUNT_PREFIX)
 
 
 class SpanChain:
@@ -147,8 +173,9 @@ class SpanChain:
         return out
 
     def nested_durations(self) -> dict[str, float]:
-        """The nested stages (``dispatched.<stage>``, ``gpu.<stage>``)
-        aggregated by key, truncated like the stamps."""
+        """The nested stages (``dispatched.<stage>``, ``gpu.<stage>``,
+        ``graph.<stage>``) and counts (``route.<count>``) aggregated by
+        key, truncated like the stamps."""
         agg: dict[str, float] = {}
         if self.nested:
             eff = self._effective()
@@ -430,6 +457,30 @@ def serve_stage(stage: str) -> None:
         clock.mark(stage)
 
 
+def serve_routing(num_experts: int, slots: int, counter=None) -> None:
+    """The bucket call will route its frames gating-first over
+    ``num_experts`` experts into ``slots`` expert-CNN images: its
+    :data:`ROUTE_STAGE` follows ``resolve`` (call before marking that).
+    One contextvar read when the dispatch is untraced; under
+    :func:`stage_scope` the running :class:`StageClock` keeps the numbers
+    for :meth:`StageClock.route_stages` and ``counter`` (a
+    :class:`~esac_tpu_torch.obs.metrics.CounterVec` labelled ``count``, or
+    None) to add them to."""
+    clock = _STAGE_CLOCK.get()
+    if clock is not None:
+        clock.routing(num_experts, slots, counter)
+
+
+def route_counts(evaluated, num_experts: int, slots: int) -> dict:
+    """The counts of one routed dispatch from its real frames'
+    ``experts_evaluated`` rows on the host ((frames, k), the sentinel
+    ``num_experts`` where capacity dropped the pair)."""
+    import numpy as np
+
+    dropped = int(np.count_nonzero(np.asarray(evaluated) == num_experts))
+    return {"pairs": int(np.size(evaluated)) - dropped, "dropped": dropped, "slots": slots}
+
+
 def graph_replayed(stage: str, seconds: float) -> None:
     """The bucket call's ``stage`` ran as a CUDA graph replay whose call
     took ``seconds`` of host time (``registry.graphs``); under
@@ -500,10 +551,12 @@ class StageClock:
     timing CUDA event recorded on the current stream at each when
     ``device`` is a card, and the profiler range of the stage running.
     After each mark the range of the next stage in :data:`SERVE_STAGES`
-    opens.  The device's stage times are read only after the caller's
-    synchronization (:meth:`device_stages`)."""
+    opens (:data:`ROUTE_STAGE` after ``resolve`` in a call that routes,
+    ``cnn`` after it).  The device's stage times are read only after the
+    caller's synchronization (:meth:`device_stages`), the routing counts
+    after the results reached the host (:meth:`route_stages`)."""
 
-    __slots__ = ("_clock", "_device", "marks", "_events", "_range", "_graphs")
+    __slots__ = ("_clock", "_device", "marks", "_events", "_range", "_graphs", "_route")
 
     def __init__(self, clock, device):
         self._clock = clock
@@ -512,6 +565,7 @@ class StageClock:
         self._events: list = []
         self._range = None
         self._graphs: list[tuple[str, float]] = []
+        self._route = None
 
     def _record(self) -> None:
         if self._device is not None:
@@ -532,10 +586,31 @@ class StageClock:
         t = self._clock()
         self._record()
         close_range(self._range)
-        i = SERVE_STAGES.index(stage) + 1
-        self._range = open_range(SERVE_STAGES[i]) if i < len(SERVE_STAGES) else None
+        nxt = ROUTE_STAGE if stage == "resolve" and self._route else _NEXT_RANGE.get(stage)
+        self._range = open_range(nxt) if nxt is not None else None
         self.marks.append((stage, t))
         return t
+
+    def routing(self, num_experts: int, slots: int, counter=None) -> None:
+        """The call routes (:func:`serve_routing`): keep its numbers."""
+        self._route = (num_experts, slots, counter)
+
+    def routed(self) -> bool:
+        return self._route is not None
+
+    def route_stages(self, evaluated) -> list[tuple[str, float]]:
+        """``(route.<count>, n)`` of a routed call (:func:`route_counts`
+        over its real frames' ``experts_evaluated`` rows on the host),
+        each also added to the call's counter; empty for a call that did
+        not route."""
+        if self._route is None:
+            return []
+        num_experts, slots, counter = self._route
+        counts = route_counts(evaluated, num_experts, slots)
+        if counter is not None:
+            for name, n in counts.items():
+                counter.inc(n, count=name)
+        return [(_COUNT_PREFIX + name, counts[name]) for name in ROUTE_COUNTS]
 
     def finish(self) -> float:
         """Mark ``outputs``; returns the ``dispatched`` stamp's time."""

@@ -30,7 +30,12 @@ schedule and equals ``make_scene_bucket_fn`` bit for bit.
 
 Under a traced dispatch both bucket functions mark the stages of the
 call (``obs.serve_stage``): "resolve" as the body starts, "cnn" after the
-CNNs, and the RANSAC stages inside ``ransac.esac._serve_frames``.
+CNNs, and the RANSAC stages inside ``ransac.esac._serve_frames``.  The
+routed function below M marks "route" too, after the gating, the top-k
+and the slot assignment, and announces its routing
+(``obs.serve_routing``): the dispatcher then counts the dispatch's kept
+and dropped pairs and its slots on the traced requests and into the
+registry's ``serve_route_total`` counter.
 
 Both bucket functions record the batch signatures they run
 (``fn._cache_size()``, ``serve.batching.count_signatures``): PyTorch
@@ -78,7 +83,7 @@ from esac_tpu_torch.ransac.esac import (
 )
 from esac_tpu_torch.ransac.kernel import as_f32, frame_generators
 from esac_tpu_torch.obs import MetricsRegistry
-from esac_tpu_torch.obs.trace import active_traces, serve_stage
+from esac_tpu_torch.obs.trace import ROUTE_STAGE, active_traces, serve_routing, serve_stage
 from esac_tpu_torch.registry.cache import DeviceWeightCache
 from esac_tpu_torch.registry.graphs import CAPTURES, REPLAYS, ServeGraphs
 from esac_tpu_torch.registry.graphs import HELP as GRAPH_HELP
@@ -103,6 +108,9 @@ from esac_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from esac_tpu_torch.utils.precision import resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ROUTE_TOTAL = "serve_route_total"
+ROUTE_HELP = ("traced routed dispatches: real frames' (frame, expert) pairs capacity kept "
+              "(count=pairs) and dropped (count=dropped), expert-CNN images (count=slots)")
 
 
 def init_scene_params(preset: ScenePreset, seed: int = 0, device=None) -> dict:
@@ -184,13 +192,15 @@ def _priors(batch: dict) -> tuple:
 
 
 def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
-                                device=None, graphs: ServeGraphs | None = None):
+                                device=None, graphs: ServeGraphs | None = None,
+                                route_counter=None):
     """Gating-first routed serving for a (preset, cfg, k) bucket (the
     module docstring): ``fn(params, batch)`` -> per-frame result dict, with
     'experts_evaluated' (B, k) (sentinel M where capacity dropped the
     pair).  Raises ``ManifestError`` for k outside 1..M, or k < M on an
     ungated preset (every frame would ride one arbitrary subset).  Owns
-    ``graphs`` as :func:`make_scene_bucket_fn` does."""
+    ``graphs`` as :func:`make_scene_bucket_fn` does; a traced dispatch's
+    routing counts go into ``route_counter`` (a ``CounterVec``, or None)."""
     M = preset.num_experts
     if not 1 <= k <= M:
         raise ManifestError(f"routed top-k {k} outside 1..{M}")
@@ -205,6 +215,8 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
 
     def run(params: dict, batch: dict) -> dict:
         with torch.inference_mode():
+            if k < M:
+                serve_routing(M, M * cap, route_counter)
             serve_stage("resolve")
             imgs = as_f32(batch["image"], dev)
             B = imgs.shape[0]
@@ -216,6 +228,7 @@ def make_routed_scene_bucket_fn(preset: ScenePreset, cfg: RansacConfig, k: int,
                 logits = params["gating"](imgs)
                 selected = select_topk_experts(logits, k)
                 kept, pos, slot_frame, _ = route_frames_to_experts(selected, M, cap)
+                serve_stage(ROUTE_STAGE)
                 # One forward per expert over its fixed block of cap frames;
                 # dropped pairs gather a clamped (wrong) row: finite garbage
                 # that the hypothesis loop scores -inf.
@@ -525,6 +538,8 @@ class SceneRegistry:
         # Every bucket function's graph cache counts into these.
         self._m_graph_captures = self.obs.counter(CAPTURES, GRAPH_HELP[CAPTURES])
         self._m_graph_replays = self.obs.counter(REPLAYS, GRAPH_HELP[REPLAYS])
+        # Every routed bucket function's traced dispatches count into it.
+        self._m_route = self.obs.counter(ROUTE_TOTAL, ROUTE_HELP)
         self.obs.register_collector("scene_health",
                                     self._health_collector)
         self.cache.bind_obs(self.obs)
@@ -572,7 +587,7 @@ class SceneRegistry:
                     make_scene_bucket_fn(entry.preset, cfg, self.device, graphs)
                     if route_k is None
                     else make_routed_scene_bucket_fn(entry.preset, cfg, route_k, self.device,
-                                                     graphs)
+                                                     graphs, self._m_route)
                 )
                 self._fns[key] = fn
             return fn
@@ -1016,6 +1031,7 @@ class SceneRegistry:
         metrics.register(self._m_health_events)
         metrics.register(self._m_graph_captures)
         metrics.register(self._m_graph_replays)
+        metrics.register(self._m_route)
         metrics.register_collector("scene_health", self._health_collector)
         self.cache.bind_obs(metrics)
         if self.host_tier is not None:

@@ -83,9 +83,12 @@ the ``serve_stage_seconds`` histogram at ``_finish``.  A traced dispatch
 also nests the stages of its bucket call inside ``dispatched``
 (``dispatched.<stage>`` on the host, ``gpu.<stage>`` on the card,
 ``graph.<stage>`` where a stage replayed as a CUDA graph; see
-``obs.trace``), and the worker's waits, the staging and the readback run
-inside host-only profiler ranges (``esac.wait_work``, ``esac.hold``,
-``esac.staging``, ``esac.to_host``, ``esac.<stage>``).  Tracing covers
+``obs.trace``) and, for a routed call, its counts (``route.pairs``,
+``route.dropped``, ``route.slots``, read from the real frames' host
+``experts_evaluated``; not in ``serve_stage_seconds``), and the worker's
+waits, the staging and the readback run inside host-only profiler ranges
+(``esac.wait_work``, ``esac.hold``, ``esac.staging``, ``esac.to_host``,
+``esac.<stage>``).  Tracing covers
 ``infer_many`` too: each bulk dispatch mints one
 :class:`~esac_tpu_torch.obs.Trace` (admitted -> staged -> coalesced, the
 wait behind the call's previous dispatch -> dispatched -> device -> sliced
@@ -115,6 +118,7 @@ from esac_tpu_torch.obs import (
     Trace,
     close_range,
     host_range,
+    is_count,
     open_range,
     stage_scope,
     trace_scope,
@@ -705,7 +709,8 @@ class MicroBatchDispatcher:
                         for j in range(n_valid)]
             if trace is not None:
                 trace.stamp("device", t_done)
-                self._close_bulk_trace(trace, clock)
+                self._close_bulk_trace(
+                    trace, clock, self._route_stages(clock, keys, host_leaves, n_valid))
             with self._lock:
                 if trace is not None:
                     self._publish_bulk_trace(trace)
@@ -722,20 +727,30 @@ class MicroBatchDispatcher:
             results.extend(rows)
         return results
 
-    def _close_bulk_trace(self, trace: Trace, clock: StageClock) -> None:
+    def _close_bulk_trace(self, trace: Trace, clock: StageClock, counts) -> None:
         """Finish one traced bulk dispatch's trace after its results were
-        sliced, with the bucket call's nested stages."""
+        sliced, with the bucket call's nested stages and ``counts``
+        (:meth:`_route_stages`)."""
         t = self._clock()
         trace.stamp("sliced", t)
         if clock.marked():
-            trace.root.nest(clock.stages())
+            trace.root.nest(clock.stages() + counts)
         trace.finish("served", t)
+
+    @staticmethod
+    def _route_stages(clock: StageClock, keys, host_leaves, n_valid: int) -> list:
+        """A traced routed call's counts over its ``n_valid`` real frames
+        (``StageClock.route_stages``); empty for any other call."""
+        if not clock.routed():
+            return []
+        return clock.route_stages(host_leaves[keys.index("experts_evaluated")][:n_valid])
 
     def _publish_bulk_trace(self, trace: Trace) -> None:
         """A finished bulk trace into the stage histogram and the trace
         store (lock held, as ``_finish`` publishes a request's)."""
         for stage, dt in trace.durations().items():
-            self._m_stage.observe(dt, stage=stage)
+            if not is_count(stage):
+                self._m_stage.observe(dt, stage=stage)
         self._trace_store.add(trace)
 
     # ---------------- worker ----------------
@@ -854,7 +869,8 @@ class MicroBatchDispatcher:
             # lands in the stage histogram.
             req.spans.stamp(outcome, req.t_done)
             for stage, dt in req.spans.durations().items():
-                self._m_stage.observe(dt, stage=stage)
+                if not is_count(stage):
+                    self._m_stage.observe(dt, stage=stage)
             if req.trace is not None and req.spans is req.trace.root:
                 # Dispatcher-minted trace: the request's chain IS the root
                 # (terminally stamped above, so the trace only needs its
@@ -1203,6 +1219,8 @@ class MicroBatchDispatcher:
             self._nest(reqs, clock.stages())
         with self._range("to_host", traced):
             host = self._to_host(out)
+        if clock is not None:
+            self._nest(reqs, self._route_stages(clock, *host, n_valid))
         return host, bucket, n_valid, t_done
 
     def _to_device(self, tree: dict) -> dict:
