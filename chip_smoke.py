@@ -82,6 +82,26 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  select launch a call (replays included), one capture and
                  two replays a signature and stage; host ms of each call
                  (synchronized) beside the eager run's;
+5c. epilogue  -- the CNNs' fused convolutions (models.expert.conv_epilogue)
+                 at the benchmark's esac7_vga widths and 640x480: one
+                 ExpertNet forward of 16 images on the separate-op path
+                 (autograd on, parameters frozen) under torch.profiler with
+                 record_shapes, each device kernel of the glue named by the
+                 aten op that launched it; then per distinct convolution
+                 shape of the expert and the gating net at batches 16 and 8
+                 (the dense bucket, a routed block) the convolution and its
+                 separate bias / residual / ReLU against the fused call
+                 (CUDA events), the bound (bf16 FLOPs at 989e12 or bytes at
+                 3.35e12, the larger), the fused call's kernels and whether
+                 benchmark/reduce.py's CONV_KERNELS classifies its longest
+                 one as a convolution, the
+                 largest |fused - separate| relative to the separate
+                 output's largest value, and the fused call bit-equal when
+                 its output lands on a block filled with NaN.  Then one
+                 expert of the benchmark's scene weights and its gating
+                 net over 16 benchmark frames, fused against separate: the
+                 largest |difference| of the scene coordinates in cm, both
+                 forwards' times, and the convolutions counted fused;
 6. training   -- (a) both kernels' autograd Functions at P = 2 frames x 7
                  experts, H = 256, N = 4800: the forwards against the plain
                  versions (the tolerance of phase 3) and against a second
@@ -1000,6 +1020,236 @@ def _dispatch_all(dev, fns, params, plan, what, prior=False):
         outs.append(got)
         times.append(ms)
     return outs, times, launches
+
+
+EPILOGUE = dict(config="esac7_open_single", cfg={}, batches=(16, 8), reps=20, frames=16)
+BF16_PEAK = 989e12
+
+
+def _conv_sites(net, prefix, height, width) -> list[tuple]:
+    """(label, conv, proj, input (C, H, W), residual (C, H, W) or None) of
+    every convolution call of an ExpertNet or GatingNet but the coordinate
+    head, in call order."""
+    out, h, w, c = [], height, width, 3
+
+    def step(conv, h, w):
+        s, p, k = conv.stride[0], conv.padding[0], conv.kernel_size[0]
+        return (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+
+    convs = list(net.stem) if hasattr(net, "stem") else list(net.convs)
+    for i, conv in enumerate(convs):
+        out.append((f"{prefix}.{i}", conv, None, (c, h, w), None))
+        (h, w), c = step(conv, h, w), conv.out_channels
+    for b, block in enumerate(getattr(net, "head", [])):
+        out.append((f"{prefix}.head{b}.conv3", block["conv3"], None, (c, h, w), None))
+        proj = block["proj"] if "proj" in block else None
+        cc = block["conv3"].out_channels
+        out.append((f"{prefix}.head{b}.conv1", block["conv1"], proj, (cc, h, w), (c, h, w)))
+        c = cc
+    return out
+
+
+def _site_bound(conv, proj, B, inp, res) -> dict:
+    """FLOPs and bytes of one site's call at batch B (bf16 in and out, each
+    read or written once) and the least time they allow."""
+    C, H, W = inp
+    k, s = conv.kernel_size[0], conv.stride[0]
+    Ho, Wo = (H + 2 * conv.padding[0] - k) // s + 1, (W + 2 * conv.padding[0] - k) // s + 1
+    flops = 2 * B * Ho * Wo * conv.out_channels * C * k * k
+    nbytes = 2 * (B * C * H * W + conv.weight.numel() + B * conv.out_channels * Ho * Wo)
+    if res is not None:
+        nbytes += 2 * B * res[0] * res[1] * res[2]
+        if proj is not None:
+            flops += 2 * B * Ho * Wo * proj.out_channels * res[0]
+            nbytes += 2 * proj.weight.numel()
+    least = max(flops / BF16_PEAK, nbytes / HBM_BPS)
+    return {"gflop": flops / 1e9, "mb": nbytes / 1e6, "bound_ms": least * 1e3,
+            "bound_by": "flops" if flops / BF16_PEAK >= nbytes / HBM_BPS else "bytes"}
+
+
+def _cuda_kernels(dev, fn) -> dict:
+    """Device us by name of the kernels one call of ``fn`` launches,
+    longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.device_time
+    return dict(sorted(us.items(), key=lambda kv: -kv[1]))
+
+
+def _glue_attribution(dev, net, x) -> list[dict]:
+    """One separate-op forward of ``net`` over ``x`` under torch.profiler
+    (record_shapes): per (kernel, launching aten op, its input shapes) the
+    launches and device ms, the kernels that are not convolutions first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.reduce import kind_of
+
+    with torch.enable_grad():
+        net(x)
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            net(x)
+            sync(dev)
+    rows = {}
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        ops, op = [], e  # the aten ops around the launch, innermost first
+        while op is not None:
+            if op.name.startswith("aten::"):
+                ops.append(op)
+            op = op.cpu_parent
+        inner = ops[0] if ops else e
+        outer = ops[-1].name if ops else e.name
+        for k in e.kernels:
+            key = (k.name[:90], outer, inner.name, str(inner.input_shapes)[:120])
+            r = rows.setdefault(key, {"kernel": key[0], "op": key[1], "inner_op": key[2],
+                                      "shapes": key[3], "kind": kind_of(k.name),
+                                      "launches": 0, "ms": 0.0})
+            r["launches"] += 1
+            r["ms"] += k.duration / 1e3
+    return sorted(rows.values(), key=lambda r: (r["kind"] == "conv", -r["ms"]))
+
+
+def _nan_block_equal(dev, fn, out) -> bool:
+    """``fn()`` bit-equal to ``out`` when the caching allocator hands it a
+    block just filled with NaN (an output the fused op never wrote would
+    show)."""
+    import torch
+
+    junk = torch.full_like(out, float("nan"))
+    del junk
+    again = fn()
+    sync(dev)
+    return bool(torch.equal(again, out))
+
+
+def phase_epilogue(dev, seed, size=EPILOGUE):
+    """Phase 5c (module docstring): the CNNs' fused convolutions against
+    their separate ops."""
+    import torch
+
+    from benchmark import scene, spec
+    from benchmark.reduce import kind_of
+    from esac_tpu_torch.models.expert import ExpertNet, conv_epilogue, fuses
+    from esac_tpu_torch.models.gating import GatingNet
+    from esac_tpu_torch.obs.trace import StageClock, stage_scope
+
+    cfg = dict(spec.load(size["config"]).cfg, **size["cfg"])
+    experts, gating = scene.make_weights(cfg, seed, dev)
+    expert = ExpertNet(stem_channels=cfg["stem_channels"], head_channels=cfg["head_channels"],
+                       head_depth=cfg["head_depth"]).to(dev)
+    expert.load_state_dict({k: v[0] for k, v in experts.items()})
+    gnet = GatingNet(cfg["num_experts"], channels=cfg["gating_channels"]).to(dev)
+    gnet.load_state_dict(gating)
+    for net in (expert, gnet):
+        net.eval().requires_grad_(False)
+    frames = scene.make_frames(cfg, seed, size["frames"], dev)["images"]
+    del experts, gating
+
+    attribution = _glue_attribution(dev, expert, frames)
+    for r in attribution[:12]:
+        log(f"[epilogue] glue {r['kind']:<5} {r['ms']:8.3f} ms x{r['launches']:<3} "
+            f"{r['op']}/{r['inner_op']} {r['kernel'][:60]} {r['shapes'][:60]}")
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sites, seen = [], set()
+    for label, conv, proj, inp, res in (_conv_sites(expert, "expert", cfg["height"], cfg["width"])
+                                        + _conv_sites(gnet, "gating", cfg["height"],
+                                                      cfg["width"])):
+        key = (conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, inp, res,
+               proj is not None)
+        if key in seen:
+            continue
+        seen.add(key)
+        for B in size["batches"]:
+            x = torch.randn((B,) + inp, generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            r = None if res is None else torch.randn((B,) + res, generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+            def separate(x=x, r=r, conv=conv, proj=proj):
+                with torch.enable_grad():
+                    return conv_epilogue(conv, x, r, proj)
+
+            def fused(x=x, r=r, conv=conv, proj=proj):
+                with torch.inference_mode():
+                    return conv_epilogue(conv, x, r, proj)
+
+            with torch.inference_mode():
+                is_fused = fuses(x)
+            want, got = separate(), fused()
+            sync(dev)
+            scale = want.float().abs().max().item()
+            row = {"site": label, "batch": B, "in": list(inp), "cout": conv.out_channels,
+                   "k": conv.kernel_size[0], "stride": conv.stride[0],
+                   "residual": r is not None, "proj": proj is not None, "fused": is_fused,
+                   "separate_ms": time_ms(separate, dev, reps=size["reps"]),
+                   "fused_ms": time_ms(fused, dev, reps=size["reps"]),
+                   "max_rel_diff": (got.float() - want.float()).abs().max().item() / scale,
+                   **_site_bound(conv, proj, B, inp, res)}
+            row["fused_kernels"] = _cuda_kernels(dev, fused)
+            row["separate_kernels"] = _cuda_kernels(dev, separate)
+            main = next(iter(row["fused_kernels"]), "")
+            # the fused call's longest kernel, and whether CONV_KERNELS
+            # classifies it as a convolution
+            row["fused_main"], row["fused_main_kind"] = main[:120], kind_of(main)
+            if is_fused:
+                row["nan_block_equal"] = _nan_block_equal(dev, fused, got)
+                if not row["nan_block_equal"]:
+                    raise AssertionError(f"{label} at {B}: the fused output depends on "
+                                         "the memory it was given")
+            sites.append(row)
+            log(f"[epilogue] {label:<22} B={B:<3} fused={is_fused!s:<5} "
+                f"separate {row['separate_ms']:.4f} ms fused {row['fused_ms']:.4f} ms "
+                f"bound {row['bound_ms']:.4f} ({row['bound_by']}) rel {row['max_rel_diff']:.2e} "
+                f"{row['fused_main_kind']} {main[:50]}")
+            del x, r, want, got
+
+    def forward_pair(net):
+        def separate():
+            with torch.enable_grad():
+                return net(frames)
+
+        def fused():
+            with torch.inference_mode():
+                return net(frames)
+
+        return separate, fused
+
+    whole = {}
+    for name, net in {"expert": expert, "gating": gnet}.items():
+        separate, fused = forward_pair(net)
+        want = separate()
+        clock = StageClock(time.perf_counter, dev)
+        with stage_scope(clock):
+            got = fused()
+        sync(dev)
+        counts = dict(clock.conv_stages())
+        whole[name] = {"separate_ms": time_ms(separate, dev, reps=10),
+                       "fused_ms": time_ms(fused, dev, reps=10),
+                       "convs": counts["cnn.convs"], "fused_convs": counts["cnn.fused_convs"]}
+        if name == "expert":
+            whole[name]["coord_max_cm"] = 100.0 * (got - want).abs().max().item()
+            whole[name]["coord_mean_cm"] = 100.0 * (got - want).abs().mean().item()
+        else:
+            whole[name]["logit_max_diff"] = (got - want).abs().max().item()
+        log(f"[epilogue] {name} forward of {size['frames']}: {whole[name]}")
+    if not whole["expert"]["coord_max_cm"] < 5.0:
+        raise AssertionError(f"fused coordinates {whole['expert']['coord_max_cm']:.3f} cm "
+                             "from the separate ops")
+    return {"attribution": attribution[:40], "sites": sites, "forward": whole,
+            "frames": size["frames"]}
 
 
 def _check_dispatch(outs, lanes, what):
@@ -4381,6 +4631,7 @@ def main(argv=None) -> int:
         phase_recovery(dev, args.seed)
         serving = phase_serving(dev, args.seed)
         graphs = phase_graphs(dev, args.seed)
+        epilogue = phase_epilogue(dev, args.seed)
         training = phase_training(dev, args.seed)
         workflow = phase_workflow(dev, args.seed)
         witness = _lint_witnesses()
@@ -4450,6 +4701,7 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi, build_s=build_s,
                                        kernels=kernels, serving=serving, graphs=graphs,
+                                       epilogue=epilogue,
                                        training=training,
                                        workflow=workflow, server=server, fleet=fleet,
                                        parallel=parallel, lint=lint, bench=bench,
@@ -4469,6 +4721,8 @@ def main(argv=None) -> int:
         "functions_max_rel_err": {"scores": training["functions"]["err_scores"],
                                   "select": training["functions"]["err_select"]}}}))
     print(json.dumps({"graphs": {"device": name, "nvidia_smi": smi, **graphs}}))
+    print(json.dumps({"epilogue": {"device": name, "nvidia_smi": smi,
+                                   "forward": epilogue["forward"]}}))
     print(json.dumps({"workflow": {"device": name, "nvidia_smi": smi, **workflow}}))
     print(json.dumps({"server": {"device": name, "nvidia_smi": smi, **server}}))
     print(json.dumps({"fleet": {"device": name, "nvidia_smi": smi, **fleet}}))

@@ -7,7 +7,9 @@ activations run in ``compute_dtype`` with float32 parameters, as Flax's
 ``dtype=`` does (the parameters are cast per call); the coordinate head
 runs in float32 so centimeter precision survives.  The convolutions stay
 ``nn.Conv2d`` -- the JAX package left them to XLA, so they are not kernels
-to port.
+to port.  :func:`conv_epilogue` runs each one with its bias, residual and
+ReLU: on the card without autograd as one cuDNN fused convolution, which
+applies them in its epilogue; everywhere else as the separate ops.
 """
 
 from __future__ import annotations
@@ -19,12 +21,59 @@ import torch.nn.functional as F
 from torch import nn
 
 from esac_tpu_torch.geometry.camera import reprojection_errors
+from esac_tpu_torch.obs.trace import convs_issued
+
+
+# Half dtypes fuse (measured in bf16); float32 convolutions, the
+# retriever's default, keep the separate ops.
+_FUSED_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` with its float32 parameters cast to ``x``'s dtype."""
     return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                     conv.stride, conv.padding)
+
+
+def fuses(x: torch.Tensor) -> bool:
+    """Whether a convolution over ``x`` runs as one cuDNN fused convolution:
+    on the card, without autograd (the fused ops have no backward), in a
+    half dtype.  Any channel count fuses: cuDNN pads a 3-channel input to
+    its vector width as it does for the separate convolution."""
+    return x.is_cuda and not torch.is_grad_enabled() and x.dtype in _FUSED_DTYPES
+
+
+def conv_epilogue(conv: nn.Conv2d, x: torch.Tensor, residual: torch.Tensor | None = None,
+                  proj: nn.Conv2d | None = None) -> torch.Tensor:
+    """``relu(conv(x))`` or, with ``residual``, ``relu(conv(x) + r)`` where
+    ``r`` is ``residual`` or, with ``proj``, ``proj(residual)``; in ``x``'s
+    dtype, float32 parameters cast per call (:func:`conv_in_dtype`).
+
+    Where :func:`fuses` holds, cuDNN applies the bias,
+    the residual and the ReLU in the convolution's epilogue, in float32, and
+    rounds once; ``proj`` then runs without its bias, which joins
+    ``conv``'s.  Otherwise every step is its own op, as the JAX package's
+    modules compute them.  Each convolution is counted for a traced
+    dispatch (:func:`~esac_tpu_torch.obs.trace.convs_issued`)."""
+    n = 1 if proj is None else 2
+    if fuses(x):
+        convs_issued(n, n)
+        w, bias = conv.weight.to(x.dtype), conv.bias
+        args = (conv.stride, conv.padding, conv.dilation, conv.groups)
+        if residual is None:
+            return torch.cudnn_convolution_relu(x, w, bias.to(x.dtype), *args)
+        if proj is not None:
+            residual = F.conv2d(residual, proj.weight.to(x.dtype), None, proj.stride,
+                                proj.padding)
+            bias = bias + proj.bias
+        return torch.cudnn_convolution_add_relu(x, w, residual, 1.0, bias.to(x.dtype), *args)
+    convs_issued(n, 0)
+    y = conv_in_dtype(conv, x)
+    if residual is None:
+        return F.relu(y)
+    if proj is not None:
+        residual = conv_in_dtype(proj, residual)
+    return F.relu(residual + y)
 
 
 class ExpertNet(nn.Module):
@@ -82,13 +131,12 @@ class ExpertNet(nn.Module):
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2).to(self.compute_dtype)
         for conv in self.stem:
-            x = F.relu(conv_in_dtype(conv, x))
+            x = conv_epilogue(conv, x)
         for block in self.head:
-            h = F.relu(conv_in_dtype(block["conv3"], x))
-            h = conv_in_dtype(block["conv1"], h)
-            if "proj" in block:
-                x = conv_in_dtype(block["proj"], x)
-            x = F.relu(x + h)
+            h = conv_epilogue(block["conv3"], x)
+            x = conv_epilogue(block["conv1"], h, residual=x,
+                              proj=block["proj"] if "proj" in block else None)
+        convs_issued(1, 0)
         x = self.coord(x.float())
         x = x.permute(0, 2, 3, 1) + self.scene_center
         return x.reshape(lead + x.shape[1:])

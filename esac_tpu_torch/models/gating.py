@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from esac_tpu_torch.models.expert import conv_in_dtype
+from esac_tpu_torch.models.expert import conv_epilogue
 
 
 class GatingNet(nn.Module):
@@ -42,7 +42,7 @@ class GatingNet(nn.Module):
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2).to(self.compute_dtype)
         for conv in self.convs:
-            x = F.relu(conv_in_dtype(conv, x))
+            x = conv_epilogue(conv, x)
         x = x.mean(dim=(2, 3)).float()  # global average pool
         x = self.dense1(F.relu(self.dense0(x)))
         return x.reshape(lead + x.shape[1:])

@@ -53,7 +53,12 @@ announces its routing (:func:`serve_routing`), and once the dispatch's
 that capacity kept), ``route.dropped`` (those it dropped) and
 ``route.slots`` (the expert-CNN images convolved), nested on every traced
 request of the dispatch as counts, not seconds (:func:`is_count`), and
-added to the routing counter the call named.
+added to the routing counter the call named.  Every traced bucket call
+also counts its convolutions (:func:`convs_issued`): ``cnn.convs`` and,
+of those, ``cnn.fused_convs`` (bias, residual and ReLU in cuDNN's
+epilogue, ``models.expert.conv_epilogue``), nested as counts on the
+dispatch's first traced request only, so that a sum over requests counts
+each dispatch once.
 
 They land on the chain as nested entries: ``dispatched.<stage>`` (host
 seconds, the dispatcher's clock) and, on the card, ``gpu.<stage>`` (the
@@ -117,12 +122,14 @@ _NEXT_RANGE = dict(zip(SERVE_STAGES, SERVE_STAGES[1:]), **{ROUTE_STAGE: "cnn"})
 # prefix of their nested keys.
 ROUTE_COUNTS = ("pairs", "dropped", "slots")
 _COUNT_PREFIX = ROUTE_STAGE + "."
+# The convolution counts of a traced bucket call (module docstring).
+CONV_COUNTS = ("cnn.convs", "cnn.fused_convs")
 
 
 def is_count(key: str) -> bool:
     """Whether a nested key of :meth:`SpanChain.durations` is a count
-    (``route.<count>``) rather than seconds."""
-    return key.startswith(_COUNT_PREFIX)
+    (``route.<count>``, ``cnn.<count>``) rather than seconds."""
+    return key.startswith(_COUNT_PREFIX) or key in CONV_COUNTS
 
 
 class SpanChain:
@@ -481,6 +488,16 @@ def route_counts(evaluated, num_experts: int, slots: int) -> dict:
     return {"pairs": int(np.size(evaluated)) - dropped, "dropped": dropped, "slots": slots}
 
 
+def convs_issued(n: int, fused: int) -> None:
+    """The bucket call issued ``n`` convolutions, ``fused`` of them with
+    bias, residual and ReLU in cuDNN's epilogue.  One contextvar read when
+    the dispatch is untraced; under :func:`stage_scope` the running
+    :class:`StageClock` adds them up."""
+    clock = _STAGE_CLOCK.get()
+    if clock is not None:
+        clock.convs(n, fused)
+
+
 def graph_replayed(stage: str, seconds: float) -> None:
     """The bucket call's ``stage`` ran as a CUDA graph replay whose call
     took ``seconds`` of host time (``registry.graphs``); under
@@ -556,7 +573,8 @@ class StageClock:
     caller's synchronization (:meth:`device_stages`), the routing counts
     after the results reached the host (:meth:`route_stages`)."""
 
-    __slots__ = ("_clock", "_device", "marks", "_events", "_range", "_graphs", "_route")
+    __slots__ = ("_clock", "_device", "marks", "_events", "_range", "_graphs", "_route",
+                 "_convs")
 
     def __init__(self, clock, device):
         self._clock = clock
@@ -566,6 +584,7 @@ class StageClock:
         self._range = None
         self._graphs: list[tuple[str, float]] = []
         self._route = None
+        self._convs = [0, 0]
 
     def _record(self) -> None:
         if self._device is not None:
@@ -611,6 +630,19 @@ class StageClock:
             for name, n in counts.items():
                 counter.inc(n, count=name)
         return [(_COUNT_PREFIX + name, counts[name]) for name in ROUTE_COUNTS]
+
+    def convs(self, n: int, fused: int) -> None:
+        """Count ``n`` convolutions of the call, ``fused`` of them fused
+        (:func:`convs_issued`)."""
+        self._convs[0] += n
+        self._convs[1] += fused
+
+    def conv_stages(self) -> list[tuple[str, float]]:
+        """``(cnn.convs, n)`` and ``(cnn.fused_convs, n)`` of the call;
+        empty where it issued no convolution."""
+        if not self._convs[0]:
+            return []
+        return list(zip(CONV_COUNTS, self._convs))
 
     def finish(self) -> float:
         """Mark ``outputs``; returns the ``dispatched`` stamp's time."""

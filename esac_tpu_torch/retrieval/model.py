@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from esac_tpu_torch.models.expert import conv_in_dtype
+from esac_tpu_torch.models.expert import conv_epilogue
 from esac_tpu_torch.ransac.kernel import as_f32
 from esac_tpu_torch.serve.batching import count_signatures
 from esac_tpu_torch.utils.num import safe_norm
@@ -88,7 +88,7 @@ class RetrieverNet(nn.Module):
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2).to(self.compute_dtype)
         for conv in self.convs:
-            x = F.relu(conv_in_dtype(conv, x))
+            x = conv_epilogue(conv, x)
         x = x.mean(dim=(2, 3)).float()  # global average pool
         x = self.dense1(F.relu(self.dense0(x)))
         x = x / safe_norm(x, dim=-1)[..., None]

@@ -85,8 +85,10 @@ also nests the stages of its bucket call inside ``dispatched``
 ``graph.<stage>`` where a stage replayed as a CUDA graph; see
 ``obs.trace``) and, for a routed call, its counts (``route.pairs``,
 ``route.dropped``, ``route.slots``, read from the real frames' host
-``experts_evaluated``; not in ``serve_stage_seconds``), and the worker's
-waits, the staging and the readback run inside host-only profiler ranges
+``experts_evaluated``; not in ``serve_stage_seconds``), its convolution
+counts on its first traced request (``cnn.convs``, ``cnn.fused_convs``),
+and the worker's waits, the staging and the readback run inside host-only
+profiler ranges
 (``esac.wait_work``, ``esac.hold``, ``esac.staging``, ``esac.to_host``,
 ``esac.<stage>``).  Tracing covers
 ``infer_many`` too: each bulk dispatch mints one
@@ -734,7 +736,7 @@ class MicroBatchDispatcher:
         t = self._clock()
         trace.stamp("sliced", t)
         if clock.marked():
-            trace.root.nest(clock.stages() + counts)
+            trace.root.nest(clock.stages() + clock.conv_stages() + counts)
         trace.finish("served", t)
 
     @staticmethod
@@ -1217,6 +1219,7 @@ class MicroBatchDispatcher:
         self._stamp(reqs, "device", t_done)
         if clock is not None and clock.marked():
             self._nest(reqs, clock.stages())
+            self._nest([r for r in reqs if r.spans is not None][:1], clock.conv_stages())
         with self._range("to_host", traced):
             host = self._to_host(out)
         if clock is not None:

@@ -26,6 +26,7 @@ from esac_tpu_torch.obs import (
     top_level,
 )
 from esac_tpu_torch.obs import trace as trace_mod
+from esac_tpu_torch.obs.trace import CONV_COUNTS
 from esac_tpu_torch.ransac.config import RansacConfig
 from esac_tpu_torch.registry.manifest import SceneEntry, SceneManifest, ScenePreset
 from esac_tpu_torch.registry.serving import (
@@ -45,6 +46,10 @@ CFG = RansacConfig(n_hyps=8, refine_iters=2, polish_iters=1, frame_buckets=(1, 4
 TOP = {"coalesced", "staged", "dispatched", "device", "sliced", "served"}
 NESTED = {f"dispatched.{s}" for s in SERVE_STAGES}
 COMPUTE = ("cnn", "sampling", "hypotheses", "scoring", "refine")
+# Convolutions of one dispatch: per expert the stem's 1 + 2 x 3, the head
+# block's 3x3 and 1x1 (no projection: 2 channels in and out) and the
+# coordinate head; the gating's 2; none fuses on the CPU.
+CONVS = M * (1 + 2 * 3 + 2 + 1) + 2
 
 
 @pytest.fixture(scope="module")
@@ -90,12 +95,17 @@ def test_traced_submit_nests_the_bucket_calls_stages_inside_dispatched(registry)
         reqs = [disp.submit(_frame(i), scene="a") for i in range(3)]
         for r in reqs:
             r.get(WAIT_S)
+        dispatches = sum(disp.dispatch_totals().values())
     finally:
         disp.close()
+    # A dispatch's convolution counts ride its first traced request alone.
+    carriers = [r.spans.durations() for r in reqs if "cnn.convs" in r.spans.durations()]
+    assert len(carriers) == dispatches
+    assert all(d["cnn.convs"] == CONVS and d["cnn.fused_convs"] == 0 for d in carriers)
     for r in reqs:
         d = r.spans.durations()
         assert set(top_level(d)) == TOP  # the top-level keys are as before
-        assert set(d) == TOP | NESTED  # no gpu.* entry off the card
+        assert set(d) - set(CONV_COUNTS) == TOP | NESTED  # no gpu.* entry off the card
         assert all(d[f"dispatched.{s}"] >= 0.0 for s in SERVE_STAGES)
         nested = math.fsum(d[k] for k in NESTED)
         assert abs(nested - d["dispatched"]) <= 1e-9
@@ -170,11 +180,12 @@ def test_traced_infer_many_stores_one_trace_per_dispatch(registry):
         assert [s for s, _ in t.root.segments()] == [
             "staged", "coalesced", "dispatched", "device", "sliced", "served"]
         d = t.durations()
-        assert set(d) == {s for s, _ in t.root.segments()} | NESTED
+        assert set(d) == {s for s, _ in t.root.segments()} | NESTED | set(CONV_COUNTS)
+        assert (d["cnn.convs"], d["cnn.fused_convs"]) == (CONVS, 0)
         assert abs(math.fsum(d[k] for k in NESTED) - d["dispatched"]) <= 1e-9
         assert t.residual() <= 1e-9
         assert [k for k, _ in t.to_dict()["nested_stages"]] == [
-            f"dispatched.{s}" for s in SERVE_STAGES]
+            f"dispatched.{s}" for s in SERVE_STAGES] + list(CONV_COUNTS)
     hist = disp.obs.get("serve_stage_seconds")
     for s in SERVE_STAGES + ("staged", "coalesced", "device", "sliced"):
         key = s if s not in SERVE_STAGES else f"dispatched.{s}"
