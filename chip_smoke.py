@@ -66,8 +66,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
                  sentinel 7 in every slot with finite poses and -inf scores,
                  frames 0-1 bit-equal to a 2-frame dispatch; a prior batch (4
                  slots, all invalid) through both bucket functions bit-equal
-                 to the plain dispatch; stage times of a routed K = 2
-                 dispatch at 4 and 16 lanes;
+                 to the plain dispatch.  The served chain's stage times
+                 come from the program's own stage spans, read by the
+                 benchmark (python3 benchmark/run.py --workload NAME
+                 --trace 1);
 5b. graphs    -- the served RANSAC chain's CUDA graphs (registry/graphs.py)
                  at the phase-5 preset under "fused_select": dense, routed
                  K = 2 and prior-slot (4 slots) bucket functions at 1, 4, 16
@@ -1486,18 +1488,8 @@ def phase_serving(dev, seed):
     routed_res["prior"] = _prior_checks(dev, params, requests, routed, dense)
     routed_res["capacity"] = routed_serve_capacity(RansacConfig(), ROUTED_K, M)
 
-    stages, busy = {}, {}
-    for lanes in (4, 16):
-        stages[lanes] = _stage_breakdown(dev, params, preset, requests[-1][:lanes])
-        stages[f"routed_k{ROUTED_K}_{lanes}"] = _routed_stage_breakdown(
-            dev, params, preset, requests[-1][:lanes], ROUTED_K)
-        if dev.type == "cuda":
-            batch = {"image": requests[-1][:lanes], "seed": np.arange(lanes)}
-            busy[lanes] = _device_busy(
-                dev, lambda: dense["fused_select"](params, batch),
-                f"[serving] profiled {lanes}-lane fused_select dispatch")
     return dict(dispatches=dispatches, launches=launches, peak_bytes=peak,
-                stages=stages, device_busy=busy, cross_bucket=cross, routed=routed_res)
+                cross_bucket=cross, routed=routed_res)
 
 
 GRAPHS = dict(buckets=(1, 4, 16, 64), calls=4)
@@ -1721,121 +1713,6 @@ def _device_busy(dev, run, label, top=6):
         f"(idle share {1 - busy_us / wall_us:.3f}); device ms by op {heavy}")
     return dict(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
                 idle_share=1 - busy_us / wall_us, device_ms_by_op=heavy)
-
-
-def _stage_breakdown(dev, params, preset, images):
-    """Host-clock times (synchronized) of each stage of one "fused_select"
-    dispatch of ``images``, in the order make_scene_bucket_fn runs them."""
-    import torch
-
-    from esac_tpu_torch.data.synthetic import output_pixel_grid
-    from esac_tpu_torch.ransac.config import RansacConfig
-    from esac_tpu_torch.ransac.kernel import _infer_winner, _take, frame_generators
-    from esac_tpu_torch.ransac.kernel import generate_hypotheses
-    from esac_tpu_torch.ransac.refine import refine_soft_inliers
-    from esac_tpu_torch.ransac.sampling import sample_correspondence_sets
-
-    cfg = RansacConfig(scoring_impl="fused_select")
-    B, M = len(images), preset.num_experts
-    imgs = torch.as_tensor(images, device=dev)
-    pixels = output_pixel_grid(preset.height, preset.width, device=dev)
-    f = params["f"].expand(B)
-    stages = {}
-
-    def stage(name, fn):
-        sync(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    with torch.inference_mode():
-        for _ in range(2):  # the second pass is the one kept (warm)
-            coords = stage("expert_cnns", lambda: torch.stack(
-                [net(imgs) for net in params["expert"]], 1).reshape(B, M, -1, 3)
-                + params["centers"][None, :, None])
-            stage("gating_cnn", lambda: params["gating"](imgs))
-            gens = frame_generators(range(B), dev)
-            idx = stage("sampling", lambda: torch.stack(
-                [sample_correspondence_sets(g, cfg.n_hyps, coords.shape[2], (M,))
-                 for g in gens]))
-            fBM = f[:, None].expand(B, M)
-            rv, tv = stage("p3p_polish", lambda: generate_hypotheses(
-                None, coords, pixels, fBM, params["c"], cfg, idx=idx))
-            best_j, best_s, _ = stage("score_select", lambda: _infer_winner(
-                rv, tv, coords, pixels, fBM, params["c"], cfg))
-            m = torch.argmax(best_s, 1)
-            j = _take(best_j, m)
-            stage("refine", lambda: refine_soft_inliers(
-                _take(_take(rv, m), j), _take(_take(tv, m), j), _take(coords, m), pixels,
-                f, params["c"], cfg.tau, cfg.beta, iters=cfg.refine_iters))
-    log(f"[serving] stages of one {B}-lane fused_select dispatch (ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    return stages
-
-
-def _routed_stage_breakdown(dev, params, preset, images, k):
-    """Host-clock times (synchronized) of each stage of one routed
-    "fused_select" dispatch of ``images`` at top-``k``, in the order
-    make_routed_scene_bucket_fn runs them: the expert CNNs run over
-    M blocks of routed_serve_capacity frames whatever the bucket."""
-    import dataclasses
-
-    import torch
-
-    from esac_tpu_torch.data.synthetic import output_pixel_grid
-    from esac_tpu_torch.parallel.esac_sharded import route_frames_to_experts
-    from esac_tpu_torch.ransac.config import RansacConfig
-    from esac_tpu_torch.ransac.esac import (_routed_sets, routed_serve_capacity,
-                                            select_topk_experts)
-    from esac_tpu_torch.ransac.kernel import (_infer_winner, _take, frame_generators,
-                                              generate_hypotheses)
-    from esac_tpu_torch.ransac.refine import refine_soft_inliers
-
-    B, M = len(images), preset.num_experts
-    cfg = RansacConfig(scoring_impl="fused_select")
-    cap = routed_serve_capacity(cfg, k, M)
-    cfg_k = dataclasses.replace(cfg, n_hyps=cfg.n_hyps * M // k)
-    imgs = torch.as_tensor(images, device=dev)
-    pixels = output_pixel_grid(preset.height, preset.width, device=dev)
-    f = params["f"].expand(B)
-    stages = {}
-
-    def stage(name, fn):
-        sync(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(dev)
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    with torch.inference_mode():
-        for _ in range(2):  # the second pass is the one kept (warm)
-            logits = stage("gating_cnn", lambda: params["gating"](imgs))
-            sel = select_topk_experts(logits, k)
-            kept, pos, slot_frame, _ = route_frames_to_experts(sel, M, cap)
-            blocks = stage("expert_cnn_blocks", lambda: torch.stack(
-                [net(imgs[slot_frame[m]]) for m, net in enumerate(params["expert"])]))
-            coords = (blocks.reshape(M, cap, -1, 3) + params["centers"][:, None, None])[
-                sel, pos.clamp(max=cap - 1)]
-            gens = frame_generators(range(B), dev)
-            idx = stage("sampling", lambda: _routed_sets(gens, cfg_k.n_hyps, coords.shape[2],
-                                                         M, sel))
-            fBK = f[:, None].expand(B, k)
-            rv, tv = stage("p3p_polish", lambda: generate_hypotheses(
-                None, coords, pixels, fBK, params["c"], cfg_k, idx=idx))
-            best_j, best_s, _ = stage("score_select", lambda: _infer_winner(
-                rv, tv, coords, pixels, fBK, params["c"], cfg_k))
-            m = torch.argmax(torch.where(kept, best_s, -torch.inf), 1)
-            j = _take(best_j, m)
-            stage("refine", lambda: refine_soft_inliers(
-                _take(_take(rv, m), j), _take(_take(tv, m), j), _take(coords, m), pixels,
-                f, params["c"], cfg.tau, cfg.beta, iters=cfg.refine_iters))
-    log(f"[serving] stages of one {B}-lane routed K={k} fused_select dispatch ({M} x {cap} "
-        f"expert-CNN images, {cfg_k.n_hyps} hypotheses a map; ms): "
-        + ", ".join(f"{name} {v:.2f}" for name, v in stages.items()))
-    return stages
 
 
 def _grads_agree(got, want, what):

@@ -406,6 +406,8 @@ def _linear_events(body, aliases, fencing: set[str], staging: dict[str, str]):
             elif f.attr == "stage":
                 out.append(("stage", sub.lineno,
                             _dotted(f.value, aliases) or "?"))
+            elif f.attr in staging:
+                out.append(("stage", sub.lineno, staging[f.attr]))
             elif f.attr in ("to", "copy_") and any(
                     kw.arg == "non_blocking" and isinstance(kw.value, ast.Constant)
                     and kw.value.value is True for kw in sub.keywords):
@@ -481,19 +483,32 @@ def _walk_calls(node):
 
 def _helper_names(tree, aliases):
     """Functions and methods of the file whose body synchronizes (a call of
-    one is a fence: the ``self._wait(done)`` idiom), and those whose body
-    stages (name -> the staging owner: the ``stage(lo, hi)`` closure of
-    ``infer_many``); one level."""
+    one is a fence: the ``self._wait(d)`` idiom), and those whose body
+    stages (name -> the staging owner: the dispatcher's ``_stage`` and the
+    ``stage(lo, hi)`` closure of ``infer_many`` that calls it), followed
+    through calls of the file's own functions and methods.  A helper that
+    does both counts as a fence."""
     fencing, staging = set(), {}
-    for node in ast.walk(tree):
-        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            continue
-        for sub in ast.walk(node):
-            if isinstance(sub, ast.Call) and isinstance(sub.func, ast.Attribute):
-                if sub.func.attr == "synchronize":
+    funcs = [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    grown = True
+    while grown:
+        grown = False
+        for node in funcs:
+            for sub in ast.walk(node):
+                if not isinstance(sub, ast.Call):
+                    continue
+                f = sub.func
+                name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+                if node.name not in fencing and (name == "synchronize" or name in fencing):
                     fencing.add(node.name)
-                elif sub.func.attr == "stage":
-                    staging.setdefault(node.name, _dotted(sub.func.value, aliases) or "?")
+                    grown = True
+                elif node.name not in staging and isinstance(f, ast.Attribute) \
+                        and name == "stage":
+                    staging[node.name] = _dotted(f.value, aliases) or "?"
+                    grown = True
+                elif node.name not in staging and name in staging:
+                    staging[node.name] = staging[name]
+                    grown = True
     return fencing, staging
 
 

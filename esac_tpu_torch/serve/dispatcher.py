@@ -224,6 +224,19 @@ class _Inflight:
         self.token = GateToken()
 
 
+class _Dispatch:
+    """One bucket call of either entry point: staged by ``_stage``, called
+    by ``_issue``, read back by ``_land``.  ``clock`` is its
+    :class:`StageClock` when traced, ``done`` its done event until waited
+    on."""
+
+    __slots__ = ("tree", "bucket", "n_valid", "clock", "out", "done")
+
+    def __init__(self, tree, bucket, n_valid, clock):
+        self.tree, self.bucket, self.n_valid, self.clock = tree, bucket, n_valid, clock
+        self.out = self.done = None
+
+
 class MicroBatchDispatcher:
     """Accumulate single-frame requests into bucketed frames-major dispatches.
 
@@ -674,86 +687,48 @@ class MicroBatchDispatcher:
 
         def stage(lo, hi):
             t0 = self._clock()
-            bucket = pick_bucket(hi - lo, self._buckets)
-            with self._range("staging", traced):
-                padded, n_valid = self._staging.stage(frames[lo:hi], bucket)
-                tree = self._to_device(padded)
+            d = self._stage(frames[lo:hi], traced)
             trace = None
             if traced:
                 trace = Trace(t0, scene=scene, root_stage="admitted")
                 trace.stamp("staged", self._clock())
-            return tree, n_valid, bucket, trace
+            return d, trace
 
         results: list[dict] = []
         staged = stage(*bounds[0])
         for i in range(len(bounds)):
-            tree, n_valid, bucket, trace = staged
-            clock = None if trace is None else StageClock(self._clock, self._device)
+            d, trace = staged
+            chains = [] if trace is None else [trace.root]
             with DISPATCH_GATE.held():
-                # the call returns once its work is queued (or, where the
-                # RANSAC path synchronizes inside, once that sync passed)
-                if clock is None:
-                    out = self._call(tree, scene, route_k, n_hyps)
-                else:
-                    # "coalesced": behind the previous dispatch of the call
-                    trace.stamp("coalesced", clock.begin())
-                    with trace_scope((trace,)):
-                        out = self._staged_call(clock, tree, scene, route_k, n_hyps)
-                    trace.stamp("dispatched", clock.finish())
-                done = self._record_done()
+                # "coalesced": behind the previous dispatch of the call
+                with _NO_RANGE if trace is None else trace_scope((trace,)):
+                    self._issue(d, scene, route_k, n_hyps, chains, "coalesced")
                 if i + 1 < len(bounds):
                     staged = stage(*bounds[i + 1])  # host staging overlaps compute
-                self._wait(done)
-            t_done = self._clock()
+                self._wait(d)
+            (keys, host_leaves), t_done = self._land(d, chains)
             with self._range("to_host", traced):
-                keys, host_leaves = self._to_host(out)
                 rows = [dict(zip(keys, (hl[j] for hl in host_leaves)))
-                        for j in range(n_valid)]
+                        for j in range(d.n_valid)]
             if trace is not None:
-                trace.stamp("device", t_done)
-                self._close_bulk_trace(
-                    trace, clock, self._route_stages(clock, keys, host_leaves, n_valid))
+                t = self._clock()
+                trace.stamp("sliced", t)
+                trace.finish("served", t)
             with self._lock:
                 if trace is not None:
-                    self._publish_bulk_trace(trace)
+                    self._publish(trace.root, trace)
                 self._record(
-                    bucket, n_valid, scene,
-                    route_k, [t_done - t_submit] * n_valid,
+                    d.bucket, d.n_valid, scene,
+                    route_k, [t_done - t_submit] * d.n_valid,
                 )
-                self._count_offered(n_valid)
+                self._count_offered(d.n_valid)
                 # Bulk serves ride the per-request trail too: the ring and
                 # the counters must tell one story on a mixed-traffic
                 # server.
                 self._count_outcome("served", scene, route_k, route_k,
-                                    n=n_valid)
+                                    n=d.n_valid)
             results.extend(rows)
         return results
-
-    def _close_bulk_trace(self, trace: Trace, clock: StageClock, counts) -> None:
-        """Finish one traced bulk dispatch's trace after its results were
-        sliced, with the bucket call's nested stages and ``counts``
-        (:meth:`_route_stages`)."""
-        t = self._clock()
-        trace.stamp("sliced", t)
-        if clock.marked():
-            trace.root.nest(clock.stages() + clock.conv_stages() + counts)
-        trace.finish("served", t)
-
-    @staticmethod
-    def _route_stages(clock: StageClock, keys, host_leaves, n_valid: int) -> list:
-        """A traced routed call's counts over its ``n_valid`` real frames
-        (``StageClock.route_stages``); empty for any other call."""
-        if not clock.routed():
-            return []
-        return clock.route_stages(host_leaves[keys.index("experts_evaluated")][:n_valid])
-
-    def _publish_bulk_trace(self, trace: Trace) -> None:
-        """A finished bulk trace into the stage histogram and the trace
-        store (lock held, as ``_finish`` publishes a request's)."""
-        for stage, dt in trace.durations().items():
-            if not is_count(stage):
-                self._m_stage.observe(dt, stage=stage)
-        self._trace_store.add(trace)
 
     # ---------------- worker ----------------
 
@@ -771,30 +746,11 @@ class MicroBatchDispatcher:
             return self._infer(tree)
         return self._infer(tree, scene)
 
-    def _staged_call(self, clock, tree, scene, route_k=None, n_hyps=None):
-        """:meth:`_call`, with ``clock`` (a begun :class:`StageClock`, or
-        None untraced) marking the bucket call's stages."""
-        if clock is None:
-            return self._call(tree, scene, route_k, n_hyps)
-        with stage_scope(clock):
-            try:
-                return self._call(tree, scene, route_k, n_hyps)
-            except BaseException:
-                clock.abandon()
-                raise
-
     @staticmethod
     def _range(name: str, on: bool):
         """The host-only profiler range ``esac.<name>`` when ``on`` (a
         traced path), else a context that does nothing."""
         return host_range(name) if on else _NO_RANGE
-
-    def _nest(self, reqs, stages) -> None:
-        """Add nested stage entries to every traced, unresolved request's
-        chain (the same best-effort skip as :meth:`_stamp`)."""
-        for r in reqs:
-            if r.spans is not None and not r.done:
-                r.spans.nest(stages)
 
     def _count_offered(self, n: int = 1):
         """Count ``n`` offered requests (lock held): legacy attribute and
@@ -870,10 +826,8 @@ class MicroBatchDispatcher:
             # to the measured end-to-end latency, and each stage duration
             # lands in the stage histogram.
             req.spans.stamp(outcome, req.t_done)
-            for stage, dt in req.spans.durations().items():
-                if not is_count(stage):
-                    self._m_stage.observe(dt, stage=stage)
-            if req.trace is not None and req.spans is req.trace.root:
+            own = req.trace is not None and req.spans is req.trace.root
+            if own:
                 # Dispatcher-minted trace: the request's chain IS the root
                 # (terminally stamped above, so the trace only needs its
                 # outcome/done marks) and this dispatcher's ring-bounded
@@ -881,10 +835,19 @@ class MicroBatchDispatcher:
                 # by the router.
                 req.trace.outcome = outcome
                 req.trace.done = True
-                if self._trace_store is not None:
-                    self._trace_store.add(req.trace)
+            self._publish(req.spans, req.trace if own else None)
         req.event.set()
         return True
+
+    def _publish(self, spans: SpanChain, trace: Trace | None) -> None:
+        """A finished chain's durations into the stage histogram (its
+        counts stay out) and ``trace``, a dispatcher-minted one, into the
+        trace store (lock held)."""
+        for stage, dt in spans.durations().items():
+            if not is_count(stage):
+                self._m_stage.observe(dt, stage=stage)
+        if trace is not None and self._trace_store is not None:
+            self._trace_store.add(trace)
 
     def _drain_lane(self, lane, error_factory, outcome: str) -> None:
         """Fail every request still queued on ``lane`` (lock held) — used
@@ -1083,20 +1046,17 @@ class MicroBatchDispatcher:
             try:
                 # Prefetch work of the process yields while the gate is
                 # held (serve/gate.py).
-                with DISPATCH_GATE.held(infl.token):
-                    if traced:
-                        with trace_scope(traced):
-                            host, bucket, n_valid, t_done = self._dispatch(
-                                reqs, scene, eff_k, n_hyps)
-                    else:
-                        host, bucket, n_valid, t_done = self._dispatch(
-                            reqs, scene, eff_k, n_hyps)
+                with DISPATCH_GATE.held(infl.token), \
+                        trace_scope(traced) if traced else _NO_RANGE:
+                    chains = [r.spans for r in reqs if r.spans is not None and not r.done]
+                    d = self._stage([r.frame for r in reqs], bool(traced))
+                    self._issue(d, scene, eff_k, n_hyps, chains, "staged")
+                    (keys, host_leaves), t_done = self._land(d, chains)
                 # Host-side result slicing: inside the try — a malformed
                 # result tree must fail THIS batch, never the worker — but
                 # OUTSIDE the lock: admission control's microsecond-
                 # rejection promise dies if submitters queue behind a
                 # full bucket's fan-out.
-                keys, host_leaves = host
                 with self._range("to_host", bool(traced)):
                     results = [
                         dict(zip(keys, (hl[i] for hl in host_leaves)))
@@ -1162,7 +1122,7 @@ class MicroBatchDispatcher:
                     else 0.25 * dt + 0.75 * self._ema_dispatch_s
                 )
                 self._ema_n += 1
-                self._record(bucket, n_valid, scene, route_k,
+                self._record(d.bucket, d.n_valid, scene, route_k,
                              [t_done - r.t_submit for r in reqs])
                 outcome = "degraded" if degraded else "served"
                 n_ok = 0
@@ -1192,39 +1152,66 @@ class MicroBatchDispatcher:
                                         n=n_ok)
             return idle
 
-    def _dispatch(self, reqs: list[_Request], scene, route_k, n_hyps=None):
-        """Pad, stage and execute one dispatch; returns the host-side
-        results + timing.  No dispatcher state is touched here -- the
-        caller owns locking and fan-out.  The span stamps reuse the
-        timeline the dispatch path already walks (the copy to the device,
-        the call, the synchronization the path ALWAYS performs) -- tracing
-        adds clock reads, never a sync.  A batch with a traced request
-        runs the call under a :class:`~esac_tpu_torch.obs.StageClock`
-        begun at the ``staged`` stamp and finished at the ``dispatched``
-        one: the call's nested stages (host, and the card's after the
-        synchronization) land on every traced chain."""
-        traced = self._tracing_any and any(r.spans is not None for r in reqs)
-        clock = StageClock(self._clock, self._device) if traced else None
-        bucket = pick_bucket(len(reqs), self._buckets)
+    # One dispatch on the card, for ``_run`` and ``infer_many`` alike.  The
+    # span stamps and nested stages reuse the timeline the dispatch already
+    # walks (the copy to the device, the call, its one synchronization):
+    # tracing adds clock reads, never a sync.
+
+    def _stage(self, frames: list[dict], traced: bool) -> _Dispatch:
+        """Pad ``frames`` into their bucket in the pooled host staging and
+        copy it to the device (inside ``esac.staging`` when traced)."""
+        bucket = pick_bucket(len(frames), self._buckets)
         with self._range("staging", traced):
-            padded, n_valid = self._staging.stage(
-                [r.frame for r in reqs], bucket
-            )
-            staged = self._to_device(padded)
-        self._stamp(reqs, "staged", None if clock is None else clock.begin())
-        out = self._staged_call(clock, staged, scene, route_k, n_hyps)
-        self._stamp(reqs, "dispatched", None if clock is None else clock.finish())
-        self._wait(self._record_done())
+            padded, n_valid = self._staging.stage(frames, bucket)
+            tree = self._to_device(padded)
+        clock = StageClock(self._clock, self._device) if traced else None
+        return _Dispatch(tree, bucket, n_valid, clock)
+
+    def _issue(self, d: _Dispatch, scene, route_k, n_hyps, chains, begun: str) -> None:
+        """Queue ``d``'s call and record its done event.  The call returns
+        once its work is queued (or, where the RANSAC path synchronizes
+        inside, once that sync passed).  A traced call runs under a
+        :class:`~esac_tpu_torch.obs.StageClock` whose begin stamps
+        ``begun`` and whose finish stamps ``dispatched`` on ``chains``."""
+        clock = d.clock
+        if clock is None:
+            d.out = self._call(d.tree, scene, route_k, n_hyps)
+        else:
+            t = clock.begin()
+            for chain in chains:
+                chain.stamp(begun, t)
+            with stage_scope(clock):
+                try:
+                    d.out = self._call(d.tree, scene, route_k, n_hyps)
+                except BaseException:
+                    clock.abandon()
+                    raise
+            t = clock.finish()
+            for chain in chains:
+                chain.stamp("dispatched", t)
+        d.done = self._record_done()
+
+    def _land(self, d: _Dispatch, chains) -> tuple[tuple[list, list], float]:
+        """Wait for ``d``, stamp ``device`` on ``chains`` at ``t_done`` and
+        read the results back (inside ``esac.to_host`` when traced); a
+        traced call's stages then nest in every chain, its convolution
+        counts in the first, and a routed call's counts over its real
+        frames in every chain.  Returns ((sorted keys, host leaves),
+        t_done)."""
+        self._wait(d)
         t_done = self._clock()
-        self._stamp(reqs, "device", t_done)
-        if clock is not None and clock.marked():
-            self._nest(reqs, clock.stages())
-            self._nest([r for r in reqs if r.spans is not None][:1], clock.conv_stages())
-        with self._range("to_host", traced):
-            host = self._to_host(out)
+        for chain in chains:
+            chain.stamp("device", t_done)
+        clock = d.clock
+        with self._range("to_host", clock is not None):
+            keys, leaves = self._to_host(d.out)
         if clock is not None:
-            self._nest(reqs, self._route_stages(clock, *host, n_valid))
-        return host, bucket, n_valid, t_done
+            calls, convs = (clock.stages(), clock.conv_stages()) if clock.marked() else ([], [])
+            counts = (clock.route_stages(leaves[keys.index("experts_evaluated")][:d.n_valid])
+                      if clock.routed() else [])
+            for i, chain in enumerate(chains):
+                chain.nest(calls + (convs if i == 0 else []) + counts)
+        return (keys, leaves), t_done
 
     def _to_device(self, tree: dict) -> dict:
         """Every staged leaf onto the serving device: one
@@ -1243,9 +1230,12 @@ class MicroBatchDispatcher:
         return ev
 
     @staticmethod
-    def _wait(done) -> None:
-        if done is not None:
-            done.synchronize()
+    def _wait(d: _Dispatch) -> None:
+        """Block until the card has run ``d``'s call; a dispatch already
+        waited on returns at once."""
+        if d.done is not None:
+            d.done.synchronize()
+            d.done = None
 
     def _to_host(self, out: dict) -> tuple[list, list]:
         """(sorted keys, host numpy leaves) of a flat result dict: one

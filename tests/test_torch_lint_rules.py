@@ -211,6 +211,33 @@ def test_r6_covers_chip_smoke_and_r8_stays_in_its_scope(tmp_path):
     assert not [f for f in run_python_rules(tmp_path) if f.path.startswith("tests/")]
 
 
+R8_HELPERS = """\
+    class Pump:
+        def _stage(self, frames):
+            return self._staging.stage(frames, 4)
+
+        def _wait(self, done):
+            done.synchronize()
+
+        def _land(self, done):
+            self._wait(done)
+
+        def run(self, batches):
+            for frames in batches:
+                self._stage(frames)
+                {land}
+    """
+
+
+@pytest.mark.parametrize("land, fires", [("self._land(None)", False), ("pass", True)],
+                         ids=["fenced", "unfenced"])
+def test_r8_follows_the_files_own_staging_and_fencing_helpers(tmp_path, land, fires):
+    """A staging method called through ``self`` is a staging, and a wait
+    two calls deep a fence (the dispatcher's ``_stage`` / ``_land``)."""
+    rel = _write(tmp_path, "esac_tpu_torch/serve/pump.py", R8_HELPERS.format(land=land))
+    assert _rules(run_python_rules(tmp_path), "R8") == ([(rel, 13)] if fires else [])
+
+
 def test_r3_follows_the_call_graph_across_modules(tmp_path):
     _write(tmp_path, "esac_tpu_torch/__init__.py", "")
     _write(tmp_path, "esac_tpu_torch/geometry/__init__.py", "")

@@ -230,7 +230,7 @@ def test_an_untraced_routed_dispatch_counts_nothing(registry, monkeypatch):
     monkeypatch.setattr(trace_mod, "route_counts", refuse)
     monkeypatch.setattr(StageClock, "routing", refuse)
     monkeypatch.setattr(StageClock, "route_stages", refuse)
-    monkeypatch.setattr(dispatcher_mod.MicroBatchDispatcher, "_route_stages", refuse)
+    monkeypatch.setattr(StageClock, "routed", refuse)
     before = registry.obs.get(ROUTE_TOTAL).total()
     frames = [_frame(i) for i in range(5)]
     reqs, _ = _one_dispatch(registry, frames, K, trace=False)

@@ -19,6 +19,7 @@ from esac_tpu_torch.obs import (
     SpanChain,
     StageClock,
     Trace,
+    is_count,
     render_prometheus,
     render_traces,
     serve_stage,
@@ -190,6 +191,81 @@ def test_traced_infer_many_stores_one_trace_per_dispatch(registry):
     for s in SERVE_STAGES + ("staged", "coalesced", "device", "sliced"):
         key = s if s not in SERVE_STAGES else f"dispatched.{s}"
         assert hist.count(stage=key) == dispatches
+
+
+@pytest.mark.parametrize("route_k", [None, 2], ids=["dense", "routed_k2"])
+def test_submit_and_infer_many_nest_the_same_keys_and_counts(registry, route_k):
+    """Three frames ride one 4-lane dispatch through each entry point."""
+    frames = [_frame(20 + i) for i in range(3)]
+    disp = registry.dispatcher(CFG, trace=True, start_worker=False)
+    try:
+        reqs = [disp.submit(f, scene="a", route_k=route_k) for f in frames]
+        disp.start()
+        for r in reqs:
+            r.get(WAIT_S)
+        disp.infer_many(frames, scene="a", route_k=route_k)
+        assert [b for b, _ in disp.dispatch_log] == [4, 4]
+    finally:
+        disp.close()
+    bulk = disp._trace_store.traces()[-1]
+    assert all(bulk.root is not r.spans for r in reqs)
+    one = reqs[0].spans.nested_durations()
+    many = bulk.root.nested_durations()
+    assert list(one) == list(many)
+    assert {k: v for k, v in one.items() if is_count(k)} == \
+        {k: v for k, v in many.items() if is_count(k)}
+    assert ("route.pairs" in one) == (route_k is not None) and "cnn.convs" in one
+
+
+class _Steps:
+    """Spies on the dispatch steps: (step, dispatch number) in call order."""
+
+    def __init__(self, monkeypatch):
+        self.log, self._ids = [], {}
+        cls = dispatcher_mod.MicroBatchDispatcher
+        for name in ("_stage", "_issue", "_wait", "_land"):
+            monkeypatch.setattr(cls, name, self._spy(name, getattr(cls, name)))
+
+    def _spy(self, name, step):
+        def run(*args, **kwargs):
+            out = step(*args, **kwargs)
+            d = out if name == "_stage" else next(a for a in args if isinstance(
+                a, dispatcher_mod._Dispatch))
+            self.log.append((name, self._ids.setdefault(id(d), len(self._ids))))
+            return out
+
+        return staticmethod(run) if name == "_wait" else run
+
+    def count(self, name):
+        return sum(1 for step, _ in self.log if step == name)
+
+
+def test_infer_many_stages_the_next_dispatch_between_this_call_and_its_wait(
+        registry, monkeypatch):
+    steps = _Steps(monkeypatch)
+    disp = registry.dispatcher(CFG, start_worker=False)
+    try:
+        disp.infer_many([_frame(i) for i in range(9)], scene="a")
+    finally:
+        disp.close()
+    log = steps.log
+    n = len(plan_dispatches(9, CFG.frame_buckets))
+    for i in range(n - 1):
+        assert log.index(("_issue", i)) < log.index(("_stage", i + 1)) \
+            < log.index(("_wait", i)) < log.index(("_issue", i + 1))
+
+
+def test_both_entry_points_go_through_the_same_steps(registry, monkeypatch):
+    steps = _Steps(monkeypatch)
+    disp = registry.dispatcher(CFG, start_worker=False)
+    try:
+        disp.infer_one(_frame(0), scene="a")
+        assert [s for s, _ in steps.log] == ["_stage", "_issue", "_wait", "_land"]
+        disp.infer_many([_frame(i) for i in range(6)], scene="a")
+    finally:
+        disp.close()
+    n = 1 + len(plan_dispatches(6, CFG.frame_buckets))
+    assert [steps.count(s) for s in ("_stage", "_issue", "_land")] == [n, n, n]
 
 
 def test_prometheus_and_trace_renderings_carry_the_stages(registry):
